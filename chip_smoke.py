@@ -16,10 +16,27 @@ Phases (each checks its results; any failure exits non-zero):
 3. the full-width TransUNet forward (default config, seeded random weights
    in the flax layout loaded through the bridge) in f32 and bf16, kernel
    path against the all-plain path, with launch counts and frames/s;
-4. the main path: ``serve`` as a user starts it (npz -> bridge -> model ->
-   the shared ``InferenceServer``), f32 and bf16, answering concurrent
-   ``/predict`` requests; the launch counters are zeroed just before and
-   read just after, and every kernel must have launched.
+4. the serving main path: ``serve`` as a user starts it (npz -> bridge ->
+   model -> the shared ``InferenceServer``), f32 and bf16, answering
+   concurrent ``/predict`` requests; the launch counters are zeroed just
+   before and read just after, and K1's and K4's kernels must have launched;
+5. one train step of the full-width model at batch 32, kernel route (K2,
+   and K3 under flash) against the plain route from the same seeded weights
+   and batch, augmentation off: loss and every parameter gradient, in f32
+   (composed and flash attention) and bf16 (flash); then ms/step and
+   frames/s of the whole step (augmentation on) on both routes, in turns;
+6. the train main path: ``cli train --synthetic --epochs 1`` as a user
+   starts it (batch 32, two optimizer steps) in f32, f32 with
+   ``--attn-train flash`` and ``--bf16 --attn-train flash``; the counters
+   are zeroed just before each run and read just after: K2's forward and
+   backward kernels must have launched in every run, K3's in the flash
+   runs; the loss is finite and every BatchNorm's running statistics moved.
+
+Phase 2 also holds the train kernels K2 (forward and backward, f32 and
+bf16, LeakyReLU folded in, at the stage-1 and stage-4 branch2 shapes and
+the stage-1 branch1 shape of batch 32) and K3 (forward and backward, f32
+and bf16, batch 32 x 80 tokens, C 512, 4 heads) against their plain
+versions.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -32,6 +49,7 @@ import argparse
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,7 +66,20 @@ K1_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:781"
 K4_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:152"
 K1_SRC = f"{PKG}/csrc/transformer_block.cu"
 K4_SRC = f"{PKG}/csrc/window_attention.cu"
+K2_SRC = f"{PKG}/csrc/group_flat_norm.cu"
+K3_SRC = f"{PKG}/csrc/flash_attention.cu"
+K2_FWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1037"
+K2_BWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1066"
+K3_FWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:583"
+K3_BWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:614"
 BATCH = 64  # the serving batch (cli serve --max-batch default)
+TRAIN_BATCH = 32  # TrainConfig.batch_size
+# the kernels each main path must launch
+SERVE_KERNELS = ("transformer_block", "window_attention", "tb_layer_norm",
+                 "tb_linear", "tb_attention_core", "wa_linear",
+                 "wa_attention_core")
+K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
+K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -89,19 +120,29 @@ class Checks:
         self.results = {}
 
     def compare(self, name, label, kernel_fn, plain_fn, tol_fn, tol_text):
+        """``kernel_fn`` / ``plain_fn`` return a tensor or a tuple of them;
+        ``tol_fn`` is one function of the plain output or a tuple of them,
+        one per output.  The error reported is the largest over outputs."""
         import torch
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = tol_fn(want)
-        ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+        if isinstance(got, torch.Tensor):
+            got, want, tol_fn = (got,), (want,), (tol_fn,)
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        tols = [f(w) for f, w in zip(tol_fn, want)]
+        ok = (all(bool(torch.isfinite(g.float()).all()) for g in got)
+              and all(e <= t for e, t in zip(errs, tols)))
+        err, tol = max(errs), max(tols)
         ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
-        log(f"  {name:18s} {label:34s} max_abs_err {err:.3e} <= {tol:.3e} "
+        log(f"  {name:18s} {label:34s} max_abs_err "
+            f"{' '.join(f'{e:.3e}' for e in errs)} <= "
+            f"{' '.join(f'{t:.3e}' for t in tols)} "
             f"({tol_text}) {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms")
-        require(ok, f"{name} {label}: max_abs_err {err} > {tol}")
+        require(ok, f"{name} {label}: max_abs_err {errs} > {tols}")
         self.results.setdefault(name, dict(max_abs_err=err, ms=ms,
                                            plain_ms=plain_ms))
         return err
@@ -115,6 +156,73 @@ def bf16_quanta(n):
 def f32_tol(want):
     """f32 sums in another order: 1e-4 relative to max(1, max|want|)."""
     return 1e-4 * max(1.0, want.abs().max().item())
+
+
+def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
+    """K2 and K3, forward and backward, against their plain versions."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 7)
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    log("phase 2 (train kernels): K2 and K3 vs plain PyTorch on the card")
+    eps, alpha = 1e-3, 0.3
+    # stage-1 branch2, stage-4 branch2, stage-1 branch1 at batch 32.  The
+    # biases are +-(|scale| sqrt(gsize-1) + 1) by channel: no pre-activation
+    # lies near the LeakyReLU's kink, where a rounding difference could send
+    # the kernel and the plain version down the two (equally right) branches
+    # of the derivative.
+    for rows, f, gsize in ((163840, 90, 10), (2560, 765, 85), (163840, 27, 3)):
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            y = rand(rows, f, scale=2.0, dtype=dt) + 0.5
+            s = 1 + rand(f, scale=0.1)
+            sign = torch.where(torch.arange(f, device=dev) % 2 == 0, 1.0, -1.0)
+            b = sign * (s.abs() * (gsize - 1) ** 0.5 + 1)
+            go = rand(rows, f, dtype=dt)
+            label = f"{rows}x{f} g{gsize} leaky {dname}"
+            tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if dname == "f32"
+                         else (bf16_quanta(2), "2 bf16 quanta"))
+            args = (y, s, b, gsize, eps, alpha)
+            checks.compare("group_flat_norm_fwd", label,
+                           lambda: K.group_flat_norm_fwd(*args),
+                           lambda: K.group_flat_norm_fwd_plain(*args),
+                           tol, text)
+            bargs = (y, go, s, b, gsize, eps, alpha)
+            checks.compare("group_flat_norm_bwd", label,
+                           lambda: K.group_flat_norm_bwd(*bargs),
+                           lambda: K.group_flat_norm_bwd_plain(*bargs),
+                           (tol, f32_tol, f32_tol),
+                           f"dy {text}; dscale, dbias (float32 sums over "
+                           f"all rows) 1e-4 x max(1,|plain|)")
+            again = K.group_flat_norm_bwd(*bargs)
+            first = K.group_flat_norm_bwd(*bargs)
+            require(torch.equal(again[1], first[1])
+                    and torch.equal(again[2], first[2]),
+                    f"K2 dscale/dbias differ between runs at {label}")
+    b_, n, c, heads, scale = TRAIN_BATCH, 80, 512, 4, 0.5
+    qk = rand(b_ * n, 2 * c, scale=0.3)
+    for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        qkv = torch.cat([qk, rand(b_ * n, c)], dim=1).to(dt)
+        go = rand(b_ * n, c, dtype=dt)
+        label = f"b{b_} N{n} C{c} h{heads} {dname}"
+        f32 = dname == "f32"
+        tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                     else (bf16_quanta(2), "2 bf16 quanta"))
+        checks.compare("flash_attention_fwd", label,
+                       lambda: K.flash_attention_fwd(qkv, n, heads, scale),
+                       lambda: K.flash_attention_fwd_plain(qkv, n, heads, scale),
+                       (tol, f32_tol), f"ctx {text}; LSE 1e-4")
+        _, lse = K.flash_attention_fwd_plain(qkv, n, heads, scale)
+        btol, btext = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                       else (bf16_quanta(4), "4 bf16 quanta"))
+        checks.compare("flash_attention_bwd", label,
+                       lambda: K.flash_attention_bwd(qkv, lse, go, n, heads, scale),
+                       lambda: K.flash_attention_bwd_plain(qkv, lse, go, n,
+                                                           heads, scale),
+                       btol, btext)
 
 
 def phase_kernels(checks: Checks, dev, seed: int) -> None:
@@ -365,11 +473,188 @@ def phase_serve(dev, x, ref, flat, tmp: str):
             f"diff to the phase-3 forward {worst:.3e} (bound {tol}); "
             f"stats {json.dumps(stats)}")
         del model
-    counts = dict(K.LAUNCHES)
+    counts = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
     log(f"  main-path launches: {counts}")
     missing = [k for k, v in counts.items() if v == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
     return counts
+
+
+# Leaves whose exact gradient is 0: a bias right before a train-mode
+# BatchNorm (the batch mean removes it) and the attention's key bias (the
+# row softmax ignores it).  Both routes return rounding noise there; phase 5
+# holds them to a small share of the largest gradient instead.
+ZERO_GRAD = re.compile(
+    r"(decoder/block_\d/conv\d_\d|hybrid/convtmp_\d)/bias$|attn/key_bias$")
+
+TRAIN_RUNS = (("f32", "composed", []), ("f32", "flash", ["--attn-train", "flash"]),
+              ("bf16", "flash", ["--bf16", "--attn-train", "flash"]))
+
+
+def train_model(seed: int, dtype: str, attn_train_impl: str):
+    """The full-width default-config TransUNet in train mode with the seeded
+    flax-layout weights, and its flat flax-layout variables."""
+    import dataclasses
+    from ultrasound_modeling_tpu.config import default_config
+    from ultrasound_modeling_tpu_torch.models.registry import build_model
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+        from_flax, random_flax_variables)
+
+    mcfg = dataclasses.replace(
+        default_config("transunet").model,
+        compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+        attn_train_impl="flash" if attn_train_impl == "flash" else "xla")
+    model = build_model(mcfg)
+    flat = random_flax_variables(model, seed)
+    model.load_state_dict(from_flax(flat), strict=True)
+    return model.train(), flat
+
+
+def phase_train_step(dev, seed: int):
+    """One train step, kernel route vs plain route, then timed steps."""
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch.data import synthetic
+    from ultrasound_modeling_tpu_torch.data.labels import label2vec
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    from ultrasound_modeling_tpu_torch.train.losses import cce_smooth
+    from ultrasound_modeling_tpu_torch.train.optim import Adam
+    from ultrasound_modeling_tpu_torch.train.step import (
+        TrainState, make_train_step)
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
+
+    log(f"phase 5: full-width train step, batch {TRAIN_BATCH}, kernel route "
+        f"vs plain route")
+    raw = synthetic.make_raw_array(TRAIN_BATCH, seed + 2)
+    x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(dev)
+    y = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(dev)
+    for dtype, impl, _ in TRAIN_RUNS:
+        name = f"{dtype}/{impl}"
+        model, _ = train_model(seed, dtype, impl)
+        model.to(dev)
+        res = {}
+        # deterministic cuDNN for the comparison: its default weight-gradient
+        # algorithms sum in an order that changes from run to run
+        torch.backends.cudnn.deterministic = True
+        for route in ("kernel", "plain"):
+            model.set_train_route(route)
+            model.zero_grad(set_to_none=True)
+            K.reset_launch_counts()
+            loss = cce_smooth(label2vec(y), model(x).float())
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in K.LAUNCHES.items() if v}
+            copies = dict(K.LAYOUT_COPIES)
+            grads = to_flax({n: p.grad for n, p in model.named_parameters()})
+            res[route] = (loss.item(), grads)
+            log(f"  {name:12s} {route:6s} loss {loss.item():.6f}  launches "
+                f"{counts}  layout copies {copies}")
+            if route == "kernel":
+                need = K2_KERNELS + (K3_KERNELS if impl == "flash" else ())
+                require(all(counts.get(k, 0) > 0 for k in need),
+                        f"{name}: kernel route did not launch {need}: {counts}")
+            else:
+                require(not counts, f"{name}: plain route launched {counts}")
+        torch.backends.cudnn.deterministic = False
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        require(np.isfinite(lk) and np.isfinite(lp), f"{name}: loss not finite")
+        loss_rel = abs(lk - lp) / abs(lp)
+        gmax = max(float(np.abs(g).max()) for g in gp.values())
+        bf16 = dtype == "bf16"
+        worst, worst_key = -1.0 if bf16 else 0.0, ""
+        for k, g in gp.items():
+            a = gk[k]
+            if ZERO_GRAD.search(k):
+                zbound = (1e-3 if bf16 else 1e-5) * gmax
+                require(max(np.abs(a).max(), np.abs(g).max()) <= zbound,
+                        f"{name} {k}: exactly-zero gradient is "
+                        f"{max(np.abs(a).max(), np.abs(g).max())} > {zbound}")
+                continue
+            if bf16:
+                cos = float((a * g).sum() / max(np.linalg.norm(a) *
+                                                np.linalg.norm(g), 1e-30))
+                if worst < 0 or cos < worst:
+                    worst, worst_key = cos, k
+            else:
+                r = float(np.abs(a - g).max() / max(np.abs(g).max(), 1e-30))
+                if r > worst:
+                    worst, worst_key = r, k
+        if bf16:
+            log(f"  {name:12s} loss rel diff {loss_rel:.3e} (bound 1e-2); "
+                f"worst leaf cosine {worst:.6f} at {worst_key} (bound 0.99)")
+            require(loss_rel <= 1e-2 and worst >= 0.99,
+                    f"{name}: loss rel {loss_rel}, cosine {worst} at {worst_key}")
+        else:
+            log(f"  {name:12s} loss rel diff {loss_rel:.3e} (bound 1e-5); "
+                f"worst leaf max|dg|/max|g| {worst:.3e} at {worst_key} "
+                f"(bound 1e-3)")
+            require(loss_rel <= 1e-5 and worst <= 1e-3,
+                    f"{name}: loss rel {loss_rel}, grad {worst} at {worst_key}")
+        # the whole step (augmentation on), the two routes in turns
+        model.zero_grad(set_to_none=True)
+        state = TrainState(model, Adam(model.parameters(), 1.0), 0,
+                           torch.Generator(device=dev).manual_seed(seed))
+        step = make_train_step(model, cce_smooth)
+        per = {"kernel": [], "plain": []}
+        for route in ("plain", "kernel", "kernel", "plain"):
+            model.set_train_route(route)
+            for _ in range(2):
+                step(state, x, y, 1e-4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                step(state, x, y, 1e-4)
+            torch.cuda.synchronize()
+            per[route].append((time.perf_counter() - t0) / 5 * 1e3)
+        ms = {r: statistics.mean(v) for r, v in per.items()}
+        log(f"  {name:12s} step ms/step kernel {ms['kernel']:.2f} "
+            f"({1e3 * TRAIN_BATCH / ms['kernel']:.1f} frames/s), plain "
+            f"{ms['plain']:.2f} ({1e3 * TRAIN_BATCH / ms['plain']:.1f} "
+            f"frames/s); turns {per}")
+        del model, state, res
+        torch.cuda.empty_cache()
+
+
+def phase_cli_train(dev, seed: int, tmp: str):
+    """The train main path: cli train as a user starts it, three ways."""
+    import numpy as np
+    from ultrasound_modeling_tpu_torch import cli
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
+
+    log("phase 6: cli train --synthetic --epochs 1 (batch 32, two steps)")
+    total = {k: 0 for k in K2_KERNELS + K3_KERNELS}
+    for dtype, impl, flags in TRAIN_RUNS:
+        name = f"{dtype}/{impl}"
+        argv = ["train", "--synthetic", "--epochs", "1", "--device", "cuda",
+                "--seed", str(seed), "--log-dir",
+                os.path.join(tmp, name.replace("/", "_")), *flags]
+        K.reset_launch_counts()
+        trainer = cli.main(argv)
+        counts = dict(K.LAUNCHES)
+        copies = dict(K.LAYOUT_COPIES)
+        ep = trainer.last_epoch
+        need = K2_KERNELS + (K3_KERNELS if impl == "flash" else ())
+        log(f"  {name:12s} launches { {k: counts[k] for k in total} } "
+            f"layout copies {copies}")
+        require(all(counts[k] > 0 for k in need),
+                f"{name}: cli train did not launch {need}: {counts}")
+        require(ep["iters"] == 2 and np.isfinite(ep["loss"]),
+                f"{name}: epoch {ep}")
+        _, init = train_model(seed, dtype, impl)
+        now = to_flax(trainer.model.state_dict())
+        stats = [k for k in init if k.startswith("batch_stats/")]
+        still = [k for k in stats if np.array_equal(now[k], init[k])]
+        require(stats and not still,
+                f"{name}: BatchNorm running statistics did not move: {still}")
+        log(f"  {name:12s} loss {ep['loss']:.4f}  {ep['frames_per_sec']:.1f} "
+            f"frames/s  {1e3 * TRAIN_BATCH / ep['frames_per_sec']:.1f} ms/step "
+            f"(epoch of 2 steps, the first one's warm-up included); "
+            f"{len(stats)} running statistics moved")
+        for k in total:
+            total[k] += counts[k]
+        del trainer
+    return total
 
 
 def main(argv=None) -> int:
@@ -414,9 +699,13 @@ def main(argv=None) -> int:
     checks = Checks()
     try:
         phase_kernels(checks, dev, args.seed)
+        phase_train_kernels(checks, dev, args.seed)
         x, ref, flat = phase_forward(dev, args.seed, BATCH)
         with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
             counts = phase_serve(dev, x, ref, flat, tmp)
+            del x, ref, flat
+            phase_train_step(dev, args.seed)
+            counts.update(phase_cli_train(dev, args.seed, tmp))
         require(not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules),
                 "jax or flax was imported")
     except SmokeFailure as e:
@@ -427,7 +716,11 @@ def main(argv=None) -> int:
              "window_attention": (K4_SRC, K4_TPU),
              "tb_layer_norm": (K1_SRC, K1_TPU), "tb_linear": (K1_SRC, K1_TPU),
              "tb_attention_core": (K1_SRC, K1_TPU),
-             "wa_linear": (K4_SRC, K4_TPU), "wa_attention_core": (K4_SRC, K4_TPU)}
+             "wa_linear": (K4_SRC, K4_TPU), "wa_attention_core": (K4_SRC, K4_TPU),
+             "group_flat_norm_fwd": (K2_SRC, K2_FWD_TPU),
+             "group_flat_norm_bwd": (K2_SRC, K2_BWD_TPU),
+             "flash_attention_fwd": (K3_SRC, K3_FWD_TPU),
+             "flash_attention_bwd": (K3_SRC, K3_BWD_TPU)}
     kernels = []
     for name, (src, tpu) in where.items():
         r = checks.results[name]

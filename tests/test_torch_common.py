@@ -71,7 +71,7 @@ def test_keras_norms_match_flax_eval(rng, kind):
     port = tc.Norm(kind, 8)
     port.load_state_dict(sd, strict=True)
     with torch.inference_mode():
-        got = port(torch.from_numpy(x)).numpy()
+        got = port.eval()(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 

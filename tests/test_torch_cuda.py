@@ -120,6 +120,106 @@ def test_transformer_block_matches_plain(cuda):
     assert K.LAUNCHES["tb_linear"] == 8 and K.LAUNCHES["tb_attention_core"] == 2
 
 
+def _quanta(want, n):
+    """n bf16 quanta (2^-8 relative) of max|want|."""
+    return n * want.float().abs().max().item() / 256
+
+
+def _f32_tol(want):
+    return 1e-4 * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f,gsize", [(163840, 90, 10), (2560, 765, 85),
+                                          (163840, 27, 3), (37, 63, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("act", [None, 0.3])
+def test_group_flat_norm_matches_plain(cuda, rows, f, gsize, dtype, act):
+    """K2 forward and backward at the flagship's extreme shapes (stage-1 and
+    stage-4 branch2, stage-1 branch1, batch 32) and a ragged one; dscale and
+    dbias are also checked to be the same bits on a second run.
+
+    With the LeakyReLU folded in, the biases are +-(scale * sqrt(gsize - 1)
+    + 1) by channel: a normalized value never exceeds sqrt(gsize - 1), so
+    every pre-activation lies at least 1 from the kink, where a rounding
+    difference could send the kernel and the plain version down the two
+    (equally right) branches of the derivative."""
+    g = torch.Generator().manual_seed(5)
+    y = _rand(g, cuda, rows, f, scale=2.0, dtype=dtype) + 0.5
+    s, b = 1 + _rand(g, cuda, f, scale=0.1), _rand(g, cuda, f, scale=0.1)
+    if act is not None:
+        sign = torch.where(torch.arange(f, device=cuda) % 2 == 0, 1.0, -1.0)
+        b = sign * (s.abs() * (gsize - 1) ** 0.5 + 1)
+    go = _rand(g, cuda, rows, f, dtype=dtype)
+    K.reset_launch_counts()
+    got = K.group_flat_norm_fwd(y, s, b, gsize, 1e-3, act)
+    want = K.group_flat_norm_fwd_plain(y, s, b, gsize, 1e-3, act)
+    nq = 2
+    tol = _f32_tol(want) if dtype == torch.float32 else _quanta(want, nq)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    dy, ds, db = K.group_flat_norm_bwd(y, go, s, b, gsize, 1e-3, act)
+    wdy, wds, wdb = K.group_flat_norm_bwd_plain(y, go, s, b, gsize, 1e-3, act)
+    tol = _f32_tol(wdy) if dtype == torch.float32 else _quanta(wdy, nq)
+    assert (dy.float() - wdy.float()).abs().max().item() <= tol
+    for got_s, want_s in ((ds, wds), (db, wdb)):
+        rel = 1e-4 * max(1.0, want_s.abs().max().item())
+        assert (got_s - want_s).abs().max().item() <= rel
+    again = K.group_flat_norm_bwd(y, go, s, b, gsize, 1e-3, act)
+    assert torch.equal(again[1], ds) and torch.equal(again[2], db)
+    assert K.LAUNCHES["group_flat_norm_fwd"] == 1
+    assert K.LAUNCHES["group_flat_norm_bwd"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,seq,c,heads", [(32, 80, 512, 4), (3, 20, 48, 4),
+                                           (2, 160, 1280, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_flash_attention_matches_plain(cuda, b, seq, c, heads, dtype):
+    """K3 forward (context, LSE) and backward (dqkv) at the flagship train
+    shape, a small ragged one and the ViT limits (S 160, d 160)."""
+    g = torch.Generator().manual_seed(6)
+    qk = _rand(g, cuda, b * seq, 2 * c, scale=0.3)
+    qkv = torch.cat([qk, _rand(g, cuda, b * seq, c)], dim=1).to(dtype)
+    go = _rand(g, cuda, b * seq, c, dtype=dtype)
+    scale = heads ** -0.5
+    K.reset_launch_counts()
+    ctx, lse = K.flash_attention_fwd(qkv, seq, heads, scale)
+    wctx, wlse = K.flash_attention_fwd_plain(qkv, seq, heads, scale)
+    f32 = dtype == torch.float32
+    assert (ctx.float() - wctx.float()).abs().max().item() <= (
+        _f32_tol(wctx) if f32 else _quanta(wctx, 2))
+    assert (lse - wlse).abs().max().item() <= _f32_tol(wlse)
+    dqkv = K.flash_attention_bwd(qkv, wlse, go, seq, heads, scale)
+    want = K.flash_attention_bwd_plain(qkv, wlse, go, seq, heads, scale)
+    assert (dqkv.float() - want.float()).abs().max().item() <= (
+        _f32_tol(want) if f32 else _quanta(want, 4))
+    assert K.LAUNCHES["flash_attention_fwd"] == 1
+    assert K.LAUNCHES["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_backward_kernels(cuda):
+    """group_flat_norm and flash_mha: the forward and the backward each
+    launch their kernel once, and the gradients agree with autograd of the
+    plain routes."""
+    g = torch.Generator().manual_seed(7)
+    y = _rand(g, cuda, 2, 16, 10, 90).requires_grad_()
+    s = (1 + _rand(g, cuda, 3, 3, 10, scale=0.1)).requires_grad_()
+    bias = _rand(g, cuda, 3, 3, 10, scale=0.1).requires_grad_()
+    qkv = _rand(g, cuda, 4, 80, 3 * 512, scale=0.3).requires_grad_()
+    K.reset_launch_counts()
+    out = (K.group_flat_norm(y, s, bias, 10, 1e-3, act="leaky").sin().sum()
+           + K.flash_mha(qkv, 4, 0.5).sin().sum())
+    grads = torch.autograd.grad(out, (y, s, bias, qkv))
+    for name in ("group_flat_norm_fwd", "group_flat_norm_bwd",
+                 "flash_attention_fwd", "flash_attention_bwd"):
+        assert K.LAUNCHES[name] == 1, name
+    ref = (K.group_flat_norm_plain(y, s, bias, 10, 1e-3, act="leaky").sin().sum()
+           + K.flash_mha_plain(qkv, 4, 0.5).sin().sum())
+    for got, want in zip(grads, torch.autograd.grad(ref, (y, s, bias, qkv))):
+        assert (got - want).abs().max().item() <= _f32_tol(want)
+
+
 def test_wrapper_device_routing():
     """Without a card a CUDA tensor cannot even be made; with one, the
     wrapper launches (counted) — it never computes a CUDA input on the

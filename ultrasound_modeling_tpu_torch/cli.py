@@ -1,7 +1,15 @@
-"""Command-line interface of the PyTorch port: ``serve`` (the other
-subcommands of the JAX package's cli are not ported yet).
+"""Command-line interface of the PyTorch port: ``train`` and ``serve`` (the
+other subcommands of the JAX package's cli are not ported yet).
 
-Weights come from the JAX side as a flax-layout npz (``utils/checkpoint``)::
+Training mirrors the JAX package's ``cli train`` (default config, the
+reference's schedule, clip and Adam)::
+
+    python -m ultrasound_modeling_tpu_torch.cli train --synthetic \
+        [--epochs N] [--batch-size B] [--bf16] [--attn-train {xla,flash}] \
+        [--seed S] [--device cuda]
+
+Serving takes weights from the JAX side as a flax-layout npz
+(``utils/checkpoint``)::
 
     # JAX side, from a restored TrainState `state`
     from ultrasound_modeling_tpu.utils.checkpoint import save_params_npz
@@ -95,10 +103,81 @@ def cmd_serve(args) -> None:
         server.shutdown()
 
 
+def build_config(args):
+    """The family's default config with the command line's overrides."""
+    cfg = default_config(args.model)
+    model, train = cfg.model, cfg.train
+    if args.bf16:
+        model = dataclasses.replace(model, compute_dtype="bfloat16")
+    if args.attn_train:
+        model = dataclasses.replace(model, attn_train_impl=args.attn_train)
+    if args.batch_size:
+        train = dataclasses.replace(train, batch_size=args.batch_size)
+    if args.seed is not None:
+        train = dataclasses.replace(train, seed=args.seed)
+    if args.epochs:
+        train = dataclasses.replace(train, epochs=args.epochs)
+    return cfg.replace(model=model, train=train)
+
+
+def build_dataset(cfg, args, device: torch.device):
+    from ultrasound_modeling_tpu_torch.data.pipeline import Dataset
+    if args.synthetic or not args.train_data:
+        h, w = cfg.model.img_size
+        bs = cfg.train.batch_size
+        return Dataset.synthetic(
+            n_train=max(64, 2 * bs), n_test=max(16, bs), height=h, width=w,
+            n_disp=cfg.model.in_channels, num_classes=cfg.model.num_classes,
+            device=device)
+    return Dataset.from_npy(args.train_data, args.val_data,
+                            cfg.model.num_classes, device=device)
+
+
+def cmd_train(args):
+    """Train, print the final evaluation summary (empty when no epoch ran
+    an evaluation, as in the JAX package) and return the Trainer."""
+    from ultrasound_modeling_tpu.utils.logging import MetricLogger
+    from ultrasound_modeling_tpu_torch.models.common import full_f32_matmuls
+    from ultrasound_modeling_tpu_torch.train.loop import Trainer
+
+    device = resolve_device(args.device)
+    full_f32_matmuls()
+    cfg = build_config(args)
+    trainer = Trainer(cfg, build_dataset(cfg, args, device), device=device,
+                      logger=MetricLogger(args.log_dir))
+    summary = trainer.fit(args.epochs)
+    print({k: round(v, 5) for k, v in summary.items()}, flush=True)
+    return trainer
+
+
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ultrasound_modeling_tpu_torch.cli",
                                  description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="train a model (default config)")
+    t.add_argument("--model", default="transunet",
+                   help="model family; only transunet is ported")
+    t.add_argument("--epochs", type=int, default=None,
+                   help="defaults to the config value (50)")
+    t.add_argument("--batch-size", type=int, default=None,
+                   help="defaults to the config value (32)")
+    t.add_argument("--seed", type=int, default=None,
+                   help="seed of the initial weights and the augmentation")
+    t.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (params stay float32)")
+    t.add_argument("--attn-train", default=None,
+                   choices=("auto", "xla", "flash", "pallas"),
+                   help="train-path attention: 'xla' (the default config) "
+                        "= composed attention, 'flash' = the K3 attention "
+                        "core with its backward kernel; 'auto' resolves to "
+                        "'xla' off the TPU; 'pallas' (K5) is not ported")
+    t.add_argument("--synthetic", action="store_true",
+                   help="synthetic data instead of .npy files")
+    t.add_argument("--train-data", default=None)
+    t.add_argument("--val-data", default=None)
+    t.add_argument("--log-dir", default="logs")
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train)
     p = sub.add_parser("serve", help="HTTP inference with micro-batching")
     p.add_argument("--params", default=None,
                    help="flax-layout npz (params/... and batch_stats/...)")
@@ -115,9 +194,9 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     args = make_parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,10 @@ permutes to a logical NCHW view, which for an NHWC-contiguous tensor is
 PyTorch's ``channels_last`` layout, so no copy is made on the way in or out.
 
 Numerics follow the Keras layers the reference uses: LayerNorm eps 1e-3
-(channels only), BatchNorm eps 1e-3 on the running statistics (eval),
-LeakyReLU 0.3, exact GELU.  Params stay float32; under a bfloat16 compute
-dtype the convs and matmuls run in bfloat16, while norm statistics and
-softmaxes are taken in float32.
+(channels only), BatchNorm eps 1e-3 and momentum 0.99 (batch statistics
+in train mode, running statistics in eval), LeakyReLU 0.3, exact GELU.
+Params stay float32; under a bfloat16 compute dtype the convs and matmuls
+run in bfloat16, while norm statistics and softmaxes are taken in float32.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 
 KERAS_LN_EPS = 1e-3
 KERAS_BN_EPS = 1e-3
+KERAS_BN_MOMENTUM = 0.99
 LEAKY_ALPHA = 0.3
 
 
@@ -31,6 +32,14 @@ def full_f32_matmuls() -> None:
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.3) with flax's derivative at 0: ``jax.nn.leaky_relu``
+    is ``where(x >= 0, x, a * x)``, slope 1 at 0, where ``F.leaky_relu``
+    takes slope ``a``.  Exact zeros are common here (the frames are zero
+    outside the brain, and fresh biases are zero).  Both give the same
+    values; without a gradient to take, the single fused
+    ``F.leaky_relu`` kernel runs instead of the three of ``where``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, x * LEAKY_ALPHA)
     return F.leaky_relu(x, LEAKY_ALPHA)
 
 
@@ -112,7 +121,15 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """Keras BatchNorm at eval: running statistics, eps 1e-3, last axis."""
+    """Keras BatchNorm over the last axis, eps 1e-3, as flax 0.12's
+    ``nn.BatchNorm(momentum=0.99)`` computes it.
+
+    Eval (``module.eval()``) normalizes with the running statistics.  Train
+    takes float32 batch statistics over every other axis, the variance as
+    ``max(E[x^2] - E[x]^2, 0)`` (flax's ``use_fast_variance``), normalizes
+    with that biased variance and updates the running statistics in place
+    as ``0.99 * running + 0.01 * batch`` — with the biased variance, where
+    ``F.batch_norm`` would use the unbiased one."""
 
     def __init__(self, c: int, eps: float = KERAS_BN_EPS):
         super().__init__()
@@ -123,8 +140,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
-        a = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = x.float() * a + (self.bias - self.running_mean * a)
+        if not self.training:
+            a = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = x.float() * a + (self.bias - self.running_mean * a)
+            return y.to(x.dtype)
+        xf = x.float()
+        axes = tuple(range(x.dim() - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = KERAS_BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
 
 

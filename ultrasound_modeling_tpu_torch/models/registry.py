@@ -32,16 +32,36 @@ def _attn_impl(impl: str) -> str:
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
+def _attn_train_impl(impl: str) -> str:
+    """JAX attn_train_impl -> the port's.  'auto' resolves off the TPU (the
+    card included) to the composed path, as ``resolve_attn_train_impl``
+    does; 'pallas' (K5, ``attention_train_fused``) is not ported yet."""
+    if impl in ("auto", "xla"):
+        return "composed"
+    if impl == "flash":
+        return "flash"
+    if impl == "pallas":
+        raise NotImplementedError(
+            "attn_train_impl='pallas' (K5 attention_train_fused) is not "
+            "ported yet: ROADMAP Queue 2")
+    raise ValueError(f"unknown attn_train_impl {impl!r}")
+
+
 def build_model(cfg: ModelConfig) -> torch.nn.Module:
     name = cfg.name
     if name == "transunet":
         from ultrasound_modeling_tpu_torch.models.transunet import TransUNet
+        if cfg.dropout_rate:
+            raise NotImplementedError(
+                f"dropout_rate={cfg.dropout_rate} is not ported yet (the "
+                f"default config trains without dropout): ROADMAP Queue 1")
         return TransUNet(
             num_classes=cfg.num_classes, hidden_size=cfg.hidden_size,
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,
             mlp_dim=cfg.mlp_dim, grid=tuple(cfg.grid), radix=cfg.radix,
             kpaths=cfg.kpaths, ksize=cfg.ksize, in_channels=cfg.in_channels,
             attn_impl=_attn_impl(cfg.attn_impl),
+            attn_train_impl=_attn_train_impl(cfg.attn_train_impl),
             compute_dtype=_DTYPES[cfg.compute_dtype])
     if name in _NOT_YET:
         raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""ResNeSt split-attention encoder, eval forward (PyTorch port of
+"""ResNeSt split-attention encoder, train and eval (PyTorch port of
 ``models/resnest.py``: ``ResNeStEncoder`` and ``ResidualS(impl='fused')``).
 
 The stage keeps the flax parameter shapes (``[K, R, ...]`` stacks, K cardinal
@@ -11,13 +11,22 @@ are, and derives conv weights from them in the forward:
   grouped conv with ``groups=K*R`` (the JAX package's block-diagonal dense
   kernel, without the zeros);
 * each branch's LayerNorm is a per-group norm on the flat channel axis with
-  float32 statistics (the JAX eval lowerings' 0/1 selection-matrix group
-  sums are a TPU device for the MXU);
+  float32 statistics, followed by LeakyReLU.  In train mode it is K2
+  (``ops.kernels.group_flat_norm``, the activation folded in, with its
+  backward kernel), as the JAX package's train lowering runs its Pallas
+  kernel; in eval mode it is plain PyTorch, as the JAX eval lowering is
+  XLA (``resnest.py:52-53``).  The JAX eval lowerings' 0/1
+  selection-matrix group sums are a TPU device for the MXU;
 * split attention: radix-sum -> GAP -> per-path dense -> LN -> LeakyReLU ->
   per-(path, radix) dense -> softmax over CHANNELS (a reference quirk, kept)
   -> radix-weighted sum.
 
-Left out: ``impl='vmap'``, the BatchNorm/ELU ``ResNeStUNet``, training.
+``train_route`` picks K2 (``'kernel'``) or its plain PyTorch version
+differentiated by autograd (``'plain'``, the reference the kernel route is
+held against on the card).  The stem's BatchNorms train with batch
+statistics (``models/common.BatchNorm``).
+
+Left out: ``impl='vmap'``, the BatchNorm/ELU ``ResNeStUNet``.
 """
 
 from __future__ import annotations
@@ -26,7 +35,10 @@ import torch
 from torch import nn
 
 from ultrasound_modeling_tpu_torch.models.common import (
-    KERAS_LN_EPS, Conv, Norm, avg_pool2, conv_nhwc, leaky)
+    KERAS_LN_EPS, LEAKY_ALPHA, Conv, Norm, avg_pool2, conv_nhwc, leaky)
+from ultrasound_modeling_tpu_torch.ops import kernels
+
+TRAIN_ROUTES = ("kernel", "plain")
 
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -45,12 +57,13 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class ResidualS(nn.Module):
     """Split-attention residual stage with a projected, normed shortcut
-    (LayerNorm blocks, LeakyReLU), eval only."""
+    (LayerNorm blocks, LeakyReLU)."""
 
     def __init__(self, cin: int, outchannel: int, ksize: int = 3,
                  radix: int = 3, kpaths: int = 3):
         super().__init__()
         k_, r_ = kpaths, radix
+        self.train_route = "kernel"
         card = outchannel // 2
         self.k, self.r, self.ksize = k_, r_, ksize
         self.c11 = int(card / r_ / k_)
@@ -78,6 +91,17 @@ class ResidualS(nn.Module):
         self.shortcut_conv = Conv(cin, outchannel, 1)
         self.shortcut_norm = Norm("layer", outchannel)
 
+    def _branch_norm(self, y: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, gsize: int) -> torch.Tensor:
+        """Per-branch LayerNorm + LeakyReLU of the flat ``[B, H, W, K*R*c]``
+        branch output: K2 in train mode, plain PyTorch in eval."""
+        if not self.training:
+            return leaky(_group_norm(y, scale, bias, gsize))
+        fn = (kernels.group_flat_norm if self.train_route == "kernel"
+              else kernels.group_flat_norm_plain)
+        return fn(y, scale, bias, gsize, KERAS_LN_EPS, act="leaky",
+                  act_alpha=LEAKY_ALPHA)
+
     def _split_attention(self, x: torch.Tensor) -> torch.Tensor:
         k_, r_, c11, ckk, ks = self.k, self.r, self.c11, self.ckk, self.ksize
         kr = k_ * r_
@@ -87,14 +111,14 @@ class ResidualS(nn.Module):
         w1 = self.branch1_kernel.reshape(kr, cin, c11).permute(0, 2, 1)
         y = conv_nhwc(x, w1.reshape(kr * c11, cin, 1, 1),
                       self.branch1_bias.reshape(-1))
-        y = leaky(_group_norm(y, self.branch1_norm_scale,
-                              self.branch1_norm_bias, c11))
+        y = self._branch_norm(y, self.branch1_norm_scale,
+                              self.branch1_norm_bias, c11)
         # [K,R,k,k,c11,ckk] -> grouped OIHW [(k,r,ckk), c11, k, k]
         w2 = self.branch2_kernel.reshape(kr, ks, ks, c11, ckk)
         w2 = w2.permute(0, 4, 3, 1, 2).reshape(kr * ckk, c11, ks, ks)
         y = conv_nhwc(y, w2, self.branch2_bias.reshape(-1), groups=kr)
-        y = leaky(_group_norm(y, self.branch2_norm_scale,
-                              self.branch2_norm_bias, ckk))
+        y = self._branch_norm(y, self.branch2_norm_scale,
+                              self.branch2_norm_bias, ckk)
         # y: [B, H, W, K*R*ckk], flat channel order (k, r, c)
         gap = y.mean(dim=(1, 2)).reshape(b, k_, r_, ckk).sum(2)   # [B,K,ckk]
         a = (torch.einsum("bkc,kcd->bkd", gap, self.attn_dense1_kernel.to(dt))

@@ -1,9 +1,10 @@
-"""TransUNet eval forward (PyTorch port of ``models/transunet.py``):
+"""TransUNet, train and eval (PyTorch port of ``models/transunet.py``):
 ResNeSt-hybrid patch embedding -> transformer bottleneck -> DecoderCup with
 dilated-conv branches and the hidden-state re-concat at every scale.
+``module.train()`` / ``module.eval()`` is the JAX package's ``train`` flag.
 
-``attn_impl`` picks the transformer's route, as ``attn_impl`` does in the
-JAX package ('xla' / 'pallas'):
+In eval mode ``attn_impl`` picks the transformer's route, as ``attn_impl``
+does in the JAX package ('xla' / 'pallas'):
 
 * ``'kernel'`` — the serving path.  Under bfloat16 the whole stack runs
   through K1 (``ops.kernels.transformer_block``, one call per layer, the
@@ -14,6 +15,13 @@ JAX package ('xla' / 'pallas'):
   versions (the reference the kernels are held against on the card).
 * ``'composed'`` — q/k/v/out linears + ``ops.attention.mha``, the JAX
   package's 'xla' path.
+
+In train mode ``attn_train_impl`` picks it, as in the JAX package:
+``'composed'`` (the JAX 'xla', autograd through ``mha``) or ``'flash'`` (the
+qkv projection as one matmul, K3 ``ops.kernels.flash_mha`` with its
+backward kernel, the output projection).  ``train_route`` (``'kernel'`` /
+``'plain'``) picks the train kernels K2 and K3 or their plain versions,
+differentiated by autograd.  The BatchNorms train with batch statistics.
 
 Left out: ``KSACDecoderBlock``, pipeline parallelism, remat, dropout.
 """
@@ -29,12 +37,14 @@ from torch import nn
 
 from ultrasound_modeling_tpu_torch.models.common import (
     Conv, ConvTranspose, LayerNorm, Norm, gelu, leaky)
-from ultrasound_modeling_tpu_torch.models.resnest import ResNeStEncoder
+from ultrasound_modeling_tpu_torch.models.resnest import (
+    TRAIN_ROUTES, ResNeStEncoder)
 from ultrasound_modeling_tpu_torch.ops import kernels
 from ultrasound_modeling_tpu_torch.ops.attention import mha
 
 TRANSFORMER_LN_EPS = 1e-6
 ATTN_IMPLS = ("kernel", "plain", "composed")
+ATTN_TRAIN_IMPLS = ("composed", "flash")
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -44,25 +54,37 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 class Attention(nn.Module):
     """MHA with q/k/v/out projections and the 1/sqrt(heads) score scale."""
 
-    def __init__(self, hidden: int, num_heads: int, attn_impl: str):
+    def __init__(self, hidden: int, num_heads: int, attn_impl: str,
+                 attn_train_impl: str = "composed"):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.attn_train_impl = attn_train_impl
+        self.train_route = "kernel"
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
         self.out = nn.Linear(hidden, hidden)
 
+    def _qkv_weights(self, dt: torch.dtype):
+        w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
+        b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+        return w.to(dt), b
+
     def forward(self, x):
         scale = 1.0 / math.sqrt(self.num_heads)
-        if self.attn_impl == "composed":
+        if self.training and self.attn_train_impl == "flash":
+            w, b = self._qkv_weights(x.dtype)
+            fn = (kernels.flash_mha if self.train_route == "kernel"
+                  else kernels.flash_mha_plain)
+            ctx = fn(F.linear(x, w, b.to(x.dtype)), self.num_heads, scale)
+            return _linear(ctx, self.out)
+        if self.training or self.attn_impl == "composed":
             q, k, v = (_linear(x, m) for m in (self.query, self.key, self.value))
             return _linear(mha(q, k, v, self.num_heads, scale), self.out)
         fn = (kernels.window_attention if self.attn_impl == "kernel"
               else kernels.window_attention_plain)
-        qkv_w = torch.cat([self.query.weight, self.key.weight,
-                           self.value.weight]).to(x.dtype)
-        qkv_b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+        qkv_w, qkv_b = self._qkv_weights(x.dtype)
         return fn(x.contiguous(), qkv_w, qkv_b, self.out.weight.to(x.dtype),
                   self.out.bias, self.num_heads, scale=scale)
 
@@ -83,10 +105,10 @@ class Block(nn.Module):
     """Pre-LN transformer block (LN eps 1e-6)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
-                 attn_impl: str):
+                 attn_impl: str, attn_train_impl: str = "composed"):
         super().__init__()
         self.attention_norm = LayerNorm(hidden, eps=TRANSFORMER_LN_EPS)
-        self.attn = Attention(hidden, num_heads, attn_impl)
+        self.attn = Attention(hidden, num_heads, attn_impl, attn_train_impl)
         self.ffn_norm = LayerNorm(hidden, eps=TRANSFORMER_LN_EPS)
         self.ffn = Mlp(hidden, mlp_dim)
 
@@ -110,16 +132,19 @@ class Encoder(nn.Module):
     """``num_layers`` blocks + the final LN (``encoder_norm``)."""
 
     def __init__(self, hidden: int, num_heads: int, num_layers: int,
-                 mlp_dim: int, attn_impl: str):
+                 mlp_dim: int, attn_impl: str, attn_train_impl: str = "composed"):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.blocks = nn.ModuleList(Block(hidden, num_heads, mlp_dim, attn_impl)
-                                    for _ in range(num_layers))
+        self.blocks = nn.ModuleList(
+            Block(hidden, num_heads, mlp_dim, attn_impl, attn_train_impl)
+            for _ in range(num_layers))
         self.encoder_norm = LayerNorm(hidden, eps=TRANSFORMER_LN_EPS)
 
     def forward(self, x):
-        if self.attn_impl != "composed" and x.dtype == torch.bfloat16:
+        # the K1 stack is an inference kernel: bf16 eval only, as in JAX
+        if (not self.training and self.attn_impl != "composed"
+                and x.dtype == torch.bfloat16):
             fn = (kernels.transformer_block if self.attn_impl == "kernel"
                   else kernels.transformer_block_plain)
             scale = 1.0 / math.sqrt(self.num_heads)
@@ -204,19 +229,22 @@ class TransUNet(nn.Module):
                  num_heads: int = 4, num_layers: int = 8, mlp_dim: int = 2048,
                  grid: Tuple[int, int] = (16, 5), radix: int = 3,
                  kpaths: int = 3, ksize: int = 3, in_channels: int = 10,
-                 attn_impl: str = "kernel",
+                 attn_impl: str = "kernel", attn_train_impl: str = "composed",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one "
                              f"of {ATTN_IMPLS}")
+        if attn_train_impl not in ATTN_TRAIN_IMPLS:
+            raise ValueError(f"unknown attn_train_impl {attn_train_impl!r}; "
+                             f"expected one of {ATTN_TRAIN_IMPLS}")
         self.grid = tuple(grid)
         self.hidden_size = hidden_size
         self.compute_dtype = compute_dtype
         self.hybrid = ResNeStEncoder(in_channels, ksize, radix, kpaths)
         self.patch_embeddings = Conv(512, hidden_size, 1)
         self.encoder = Encoder(hidden_size, num_heads, num_layers, mlp_dim,
-                               attn_impl)
+                               attn_impl, attn_train_impl)
         self.decoder = DecoderCup(hidden_size, num_classes, self.grid)
 
     def set_attn_impl(self, attn_impl: str) -> None:
@@ -225,6 +253,15 @@ class TransUNet(nn.Module):
         for m in self.modules():
             if hasattr(m, "attn_impl"):
                 m.attn_impl = attn_impl
+
+    def set_train_route(self, route: str) -> None:
+        """``'kernel'``: train mode runs K2 (and K3 under 'flash');
+        ``'plain'``: their plain versions, differentiated by autograd."""
+        if route not in TRAIN_ROUTES:
+            raise ValueError(f"unknown train route {route!r}")
+        for m in self.modules():
+            if hasattr(m, "train_route"):
+                m.train_route = route
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats, features = self.hybrid(x.to(self.compute_dtype))

@@ -1,20 +1,32 @@
-"""Hand-written CUDA kernels of the serving path, their plain PyTorch
-versions, and launch counters.
+"""Hand-written CUDA kernels of the serving and train paths, their plain
+PyTorch versions, and launch counters.
 
-Two Pallas kernels of the JAX package run on the TransUNet serving forward;
-both are ported here (sources in ``csrc/``, notes at the top of each file):
+Four Pallas kernels of the JAX package run on the TransUNet paths ported
+so far (sources in ``csrc/``, notes at the top of each file); every
+``pallas_kernels.py`` line below is in ``ultrasound_modeling_tpu/ops/``:
 
 * **K1** ``transformer_block`` — replaces ``transformer_block_fused``
-  (``ultrasound_modeling_tpu/ops/pallas_kernels.py:781``), the bf16
-  pre-LN block that bf16 serving runs once per layer.  Built from three
-  kernels: ``layer_norm``, ``linear`` (bf16 WMMA GEMM with a fused
-  bias/GELU/residual epilogue) and ``attention_core``
-  (``csrc/transformer_block.cu``).
+  (``pallas_kernels.py:781``), the bf16 pre-LN block that bf16 serving
+  runs once per layer.  Built from three kernels: ``layer_norm``,
+  ``linear`` (bf16 WMMA GEMM with a fused bias/GELU/residual epilogue) and
+  ``attention_core`` (``csrc/transformer_block.cu``).
 * **K4** ``window_attention`` — replaces ``window_attention_fused``
   (``pallas_kernels.py:83``; ``pl.pallas_call`` in
-  ``_fused_attn_fwd_pallas`` ``:152``), the f32 attention that f32 serving
+  ``_fused_attn_fwd_pallas`` ``:158``), the f32 attention that f32 serving
   runs in every layer.  Built from ``linear`` (f32 SIMT GEMM) and
   ``attention_core`` with an additive matrix (``csrc/window_attention.cu``).
+* **K2** ``group_flat_norm`` — replaces ``group_flat_norm``
+  (``pallas_kernels.py:1113``; ``_gfn_fwd_pallas`` ``:1037`` and
+  ``_gfn_bwd_pallas`` ``:1066``), the per-branch LayerNorm with the folded
+  LeakyReLU that every split-attention stage runs twice on the train path.
+  Forward ``group_flat_norm_fwd`` and backward ``group_flat_norm_bwd``
+  (``csrc/group_flat_norm.cu``), joined by ``GroupFlatNorm``.
+* **K3** ``flash_mha`` — replaces ``flash_mha`` (``pallas_kernels.py:655``;
+  ``_flash_fwd_pallas`` ``:583`` and ``_flash_bwd_pallas`` ``:614``), the
+  LSE-saving attention core of ``--attn-train flash``.  Forward
+  ``flash_attention_fwd`` (context and per-row LSE) and backward
+  ``flash_attention_bwd`` (packed dqkv) (``csrc/flash_attention.cu``),
+  joined by ``FlashMHA``.
 
 Every wrapper checks device, dtype, shape and contiguity and allocates its
 outputs.  For CUDA tensors it launches its kernel (or raises); for CPU
@@ -22,10 +34,12 @@ tensors it calls the plain version, which is the same function written
 with PyTorch ops — the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 ``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4
-call.
+call; ``LAYOUT_COPIES`` counts the inputs K2 and K3 had to copy into the
+contiguous layout their kernels read.
 
-The kernels build once, on first use, with ``nvcc`` into ``_build/``
-(``build()``); nothing here touches CUDA at import.
+The kernels build on first use, one ``nvcc`` per source, all started
+together, into ``_build/`` (``build()``); nothing here touches CUDA at
+import.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -46,26 +61,51 @@ from ultrasound_modeling_tpu_torch.ops import window_attn
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("transformer_block.cu", "window_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_SEQ = 160    # attention_core limits (csrc/attention_core.cuh)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each source becomes one shared library; its C entry points and their
+# argument types (pointers and the stream as c_void_p, never a bare int)
+SOURCES = {
+    "transformer_block.cu": {
+        "tb_layer_norm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+        "tb_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "tb_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P]},
+    "window_attention.cu": {
+        "wa_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "wa_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    "group_flat_norm.cu": {
+        "group_flat_norm_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                _F, _P],
+        "group_flat_norm_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _F, _I, _F, _P]},
+    "flash_attention.cu": {
+        "flash_attention_fwd": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+        "flash_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
+                                _P]},
+}
+
+MAX_SEQ = 160    # attention_core / flash_attention limits (csrc/*.cu)
 MAX_HEAD_DIM = 160
 
 # launches per CUDA entry point (csrc/*.cu), plus one per call of the two
-# ported TPU kernels, K1 and K4, that run their sequence of entry points
+# ported TPU kernels, K1 and K4, that run a sequence of entry points (K2's
+# and K3's four functions are one entry point each)
 LAUNCHES = {"transformer_block": 0, "window_attention": 0,
-            "tb_layer_norm": 0, "tb_linear": 0, "tb_attention_core": 0,
-            "wa_linear": 0, "wa_attention_core": 0}
+            **{fn: 0 for fns in SOURCES.values() for fn in fns}}
+# inputs that K2 / K3 received in a layout their kernels do not read and
+# copied (a non-contiguous conv output or incoming gradient)
+LAYOUT_COPIES = {"group_flat_norm": 0, "flash_mha": 0}
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[types.SimpleNamespace] = None
 BUILD_LOG = ""
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAYOUT_COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -83,39 +123,49 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (CUDA_HOME or PATH)")
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/*.cu`` into one shared library (once per source
-    content) and bind its C entry points."""
+def build() -> types.SimpleNamespace:
+    """Compile each ``csrc/*.cu`` source into its own shared library (once
+    per content of ``csrc/``), running one ``nvcc`` per source in parallel,
+    and bind every C entry point; returns them as attributes."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha1()
     for p in sorted(CSRC.iterdir()):
         digest.update(p.name.encode() + p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"libum_kernels_{digest.hexdigest()[:12]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
+    tag = digest.hexdigest()[:12]
+    libs = {src: BUILD_DIR / f"lib{Path(src).stem}_{tag}.so" for src in SOURCES}
+    jobs = {}
+    for src, lib_path in libs.items():
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            jobs[src] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    logs, failed = [], []
+    for src, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {src}\n{out}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tb_layer_norm.argtypes = [p, i, p, p, p, i, i, i, f, p]
-    lib.tb_linear.argtypes = [p, p, p, p, i, p, i, i, i, i, i, p]
-    lib.wa_linear.argtypes = [p, p, p, p, i, p, i, i, i, i, i, p]
-    lib.tb_attention_core.argtypes = [p, p, i, i, i, i, f, p]
-    lib.wa_attention_core.argtypes = [p, p, p, i, i, i, i, i, f, p]
-    for fn in (lib.tb_layer_norm, lib.tb_linear, lib.wa_linear,
-               lib.tb_attention_core, lib.wa_attention_core):
-        fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+            failed.append(f"{src} ({proc.returncode})")
+        else:
+            os.replace(tmp, libs[src])
+    BUILD_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
+    fns = {}
+    for src, entry_points in SOURCES.items():
+        lib = ctypes.CDLL(str(libs[src]))
+        for name, argtypes in entry_points.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    _LIB = types.SimpleNamespace(**fns)
+    return _LIB
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -426,3 +476,302 @@ def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,
     qkv = linear(x.reshape(nbw * n, c), qkv_w, qkv_b)
     ctx = attention_core(qkv, n, num_heads, float(scale), addmask=addmask)
     return linear(ctx, proj_w, proj_b).reshape(nbw, n, c)
+
+
+# ---------------------------------------------------------------------------
+# K2: per-group channel LayerNorm over a flat channel axis (+ LeakyReLU)
+# ---------------------------------------------------------------------------
+
+def _gfn_rows_per_block(f: int) -> int:
+    """Rows per CUDA block: a tile of about 4096 values (16 KB in float32)
+    in shared memory, at most 128 rows."""
+    return max(1, min(128, 4096 // f))
+
+
+def _check_gfn(y2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               gsize: int) -> None:
+    _check(y2, "y", (_F32, _BF16))
+    if y2.dim() != 2:
+        raise ValueError(f"y must be [rows, F], got {tuple(y2.shape)}")
+    f = y2.shape[1]
+    if gsize <= 0 or f % gsize:
+        raise ValueError(f"channels {f} not divisible by group size {gsize}")
+    _check(scale, "scale", (_F32,), (f,))
+    _check(bias, "bias", (_F32,), (f,))
+
+
+def _gfn_groups(y2: torch.Tensor, gsize: int, eps: float):
+    """(centered values, 1/std) per row and group, float32, two-pass."""
+    rows, f = y2.shape
+    yg = y2.float().reshape(rows, f // gsize, gsize)
+    zc = yg - yg.mean(-1, keepdim=True)
+    return zc, torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
+
+
+def group_flat_norm_fwd_plain(y2: torch.Tensor, scale: torch.Tensor,
+                              bias: torch.Tensor, gsize: int, eps: float,
+                              alpha: Optional[float] = None) -> torch.Tensor:
+    zc, rstd = _gfn_groups(y2, gsize, eps)
+    out = (zc * rstd).reshape(y2.shape) * scale + bias
+    if alpha is not None:
+        out = torch.where(out >= 0, out, alpha * out)
+    return out.to(y2.dtype)
+
+
+def group_flat_norm_bwd_plain(y2: torch.Tensor, g2: torch.Tensor,
+                              scale: torch.Tensor, bias: torch.Tensor,
+                              gsize: int, eps: float,
+                              alpha: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    rows, f = y2.shape
+    zc, rstd = _gfn_groups(y2, gsize, eps)
+    xhat = (zc * rstd).reshape(rows, f)
+    g = g2.float()
+    if alpha is not None:
+        g = g * torch.where(xhat * scale + bias >= 0, 1.0, alpha)
+    sg = (g * scale).reshape(zc.shape)
+    xg = xhat.reshape(zc.shape)
+    t1 = sg.mean(-1, keepdim=True)
+    t2 = (sg * xg).mean(-1, keepdim=True)
+    dy = ((sg - t1 - xg * t2) * rstd).reshape(rows, f)
+    return dy.to(y2.dtype), (g * xhat).sum(0), g.sum(0)
+
+
+def group_flat_norm_fwd(y2: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, gsize: int, eps: float,
+                        alpha: Optional[float] = None) -> torch.Tensor:
+    """K2 forward: each contiguous group of ``gsize`` channels of every row
+    of ``y2 [rows, F]`` (float32 or bfloat16) normalized with its own
+    float32 mean and biased variance, then ``* scale + bias`` (float32
+    ``[F]``) and, when ``alpha`` is given, LeakyReLU(alpha).  Output in
+    y2's dtype."""
+    _check_gfn(y2, scale, bias, gsize)
+    if not _on_cuda(y2, scale, bias):
+        return group_flat_norm_fwd_plain(y2, scale, bias, gsize, eps, alpha)
+    rows, f = y2.shape
+    out = torch.empty_like(y2)
+    _launch(build().group_flat_norm_fwd, _ptr(y2), int(y2.dtype == _BF16),
+            _ptr(scale), _ptr(bias), _ptr(out), rows, f, gsize,
+            _gfn_rows_per_block(f), float(eps), int(alpha is not None),
+            float(alpha or 0.0), _stream())
+    return out
+
+
+def group_flat_norm_bwd(y2: torch.Tensor, g2: torch.Tensor,
+                        scale: torch.Tensor, bias: torch.Tensor, gsize: int,
+                        eps: float, alpha: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 backward from the saved input ``y2`` and the output gradient
+    ``g2`` (y2's dtype): ``(dy, dscale, dbias)``, dy in y2's dtype, dscale
+    and dbias float32 sums over all rows (per-block partials, then one
+    fixed-order reduce: the same bits on every run)."""
+    _check_gfn(y2, scale, bias, gsize)
+    _check(g2, "g", (y2.dtype,), tuple(y2.shape))
+    if not _on_cuda(y2, g2, scale, bias):
+        return group_flat_norm_bwd_plain(y2, g2, scale, bias, gsize, eps,
+                                         alpha)
+    rows, f = y2.shape
+    rpb = _gfn_rows_per_block(f)
+    blocks = -(-rows // rpb)
+    dy = torch.empty_like(y2)
+    partial = torch.empty((blocks, 2, f), dtype=_F32, device=y2.device)
+    dscale = torch.empty(f, dtype=_F32, device=y2.device)
+    dbias = torch.empty(f, dtype=_F32, device=y2.device)
+    _launch(build().group_flat_norm_bwd, _ptr(y2), _ptr(g2),
+            int(y2.dtype == _BF16), _ptr(scale), _ptr(bias), _ptr(dy),
+            _ptr(partial), _ptr(dscale), _ptr(dbias), rows, f, gsize, rpb,
+            float(eps), int(alpha is not None), float(alpha or 0.0),
+            _stream())
+    return dy, dscale, dbias
+
+
+def _contiguous(t: torch.Tensor, kernel: str) -> torch.Tensor:
+    if not t.is_contiguous():
+        LAYOUT_COPIES[kernel] += 1
+        t = t.contiguous()
+    return t
+
+
+class GroupFlatNorm(torch.autograd.Function):
+    """K2 with its backward kernel: saves the input, recomputes the group
+    statistics in the backward (as ``_gfn_core``'s custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, y2, scale, bias, gsize, eps, alpha):
+        ctx.gfn = (gsize, eps, alpha)
+        ctx.save_for_backward(y2, scale, bias)
+        return group_flat_norm_fwd(y2, scale, bias, gsize, eps, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        y2, scale, bias = ctx.saved_tensors
+        dy, dscale, dbias = group_flat_norm_bwd(
+            y2, _contiguous(g, "group_flat_norm").to(y2.dtype), scale, bias,
+            *ctx.gfn)
+        return dy, dscale, dbias, None, None, None
+
+
+def _gfn_alpha(act: Optional[str], act_alpha: float) -> Optional[float]:
+    if act not in (None, "leaky"):
+        raise ValueError(f"unsupported folded activation {act!r}")
+    return float(act_alpha) if act == "leaky" else None
+
+
+def group_flat_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    gsize: int, eps: float, act: Optional[str] = None,
+                    act_alpha: float = 0.3) -> torch.Tensor:
+    """Differentiable K2 with the JAX signature (``pallas_kernels.
+    group_flat_norm``): ``y [..., F]``, per-channel ``scale``/``bias`` of F
+    values (any shape), ``act='leaky'`` folds LeakyReLU(``act_alpha``) in.
+    The kernels read ``y`` as a contiguous ``[rows, F]``; any other layout
+    is copied once and counted in ``LAYOUT_COPIES``."""
+    alpha = _gfn_alpha(act, act_alpha)
+    f = y.shape[-1]
+    y2 = _contiguous(y, "group_flat_norm").view(-1, f)
+    out = GroupFlatNorm.apply(y2, scale.reshape(-1), bias.reshape(-1),
+                              int(gsize), float(eps), alpha)
+    return out.view(y.shape)
+
+
+def group_flat_norm_plain(y: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, gsize: int, eps: float,
+                          act: Optional[str] = None,
+                          act_alpha: float = 0.3) -> torch.Tensor:
+    """The plain route of :func:`group_flat_norm`: the same forward in
+    PyTorch ops, differentiated by autograd (an independent check of the
+    backward kernel)."""
+    f = y.shape[-1]
+    out = group_flat_norm_fwd_plain(y.reshape(-1, f), scale.reshape(-1),
+                                    bias.reshape(-1), int(gsize), float(eps),
+                                    _gfn_alpha(act, act_alpha))
+    return out.reshape(y.shape)
+
+
+# ---------------------------------------------------------------------------
+# K3: flash-style attention core (LSE-saving), forward and backward
+# ---------------------------------------------------------------------------
+
+def _check_flash(qkv2: torch.Tensor, seq: int,
+                 num_heads: int) -> Tuple[int, int, int]:
+    _check(qkv2, "qkv", (_F32, _BF16))
+    if qkv2.dim() != 2:
+        raise ValueError(f"qkv must be [B*seq, 3C], got {tuple(qkv2.shape)}")
+    return _check_attention_shape(qkv2.shape[0], seq, qkv2.shape[1],
+                                  num_heads, None)
+
+
+def _split_heads(qkv2: torch.Tensor, seq: int, num_heads: int):
+    """float32 q, k, v ``[B, heads, seq, d]`` of a packed ``[B*seq, 3C]``."""
+    rows, c3 = qkv2.shape
+    d = c3 // 3 // num_heads
+    return qkv2.float().view(rows // seq, seq, 3, num_heads, d).permute(
+        2, 0, 3, 1, 4)
+
+
+def flash_attention_fwd_plain(qkv2: torch.Tensor, seq: int, num_heads: int,
+                              scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dt = qkv2.dtype
+    q, k, v = _split_heads(qkv2, seq, num_heads)
+    s = (q @ k.transpose(-1, -2)) * scale
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    p = (e / den).to(dt).float()
+    ctx = (p @ v).transpose(1, 2).reshape(qkv2.shape[0], -1)
+    return ctx.to(dt), (m + torch.log(den)).squeeze(-1)
+
+
+def flash_attention_bwd_plain(qkv2: torch.Tensor, lse: torch.Tensor,
+                              g2: torch.Tensor, seq: int, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    dt = qkv2.dtype
+    q, k, v = _split_heads(qkv2, seq, num_heads)
+    b, h, _, d = q.shape
+    g = g2.to(dt).float().view(b, seq, h, d).transpose(1, 2)
+    p = torch.exp((q @ k.transpose(-1, -2)) * scale - lse[..., None])
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(dt).float()
+    dqkv = torch.stack([ds @ k, ds.transpose(-1, -2) @ q,
+                        p.to(dt).float().transpose(-1, -2) @ g])
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(qkv2.shape).to(dt)
+
+
+def flash_attention_fwd(qkv2: torch.Tensor, seq: int, num_heads: int,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 forward on the packed projection ``qkv2 [B*seq, 3C]`` (q | k | v,
+    heads contiguous in each; float32 or bfloat16): per (sequence, head)
+    ``s = q.k^T * scale``, ``P = softmax(s)`` cast to qkv's dtype, context
+    ``P.v`` ``[B*seq, C]`` in qkv's dtype and the float32 row log-sum-exp
+    ``[B, heads, seq]``."""
+    b, c, _ = _check_flash(qkv2, seq, num_heads)
+    if not _on_cuda(qkv2):
+        return flash_attention_fwd_plain(qkv2, seq, num_heads, scale)
+    out = torch.empty((qkv2.shape[0], c), dtype=qkv2.dtype, device=qkv2.device)
+    lse = torch.empty((b, num_heads, seq), dtype=_F32, device=qkv2.device)
+    _launch(build().flash_attention_fwd, _ptr(qkv2), int(qkv2.dtype == _BF16),
+            _ptr(out), _ptr(lse), b, seq, c, num_heads, float(scale),
+            _stream())
+    return out, lse
+
+
+def flash_attention_bwd(qkv2: torch.Tensor, lse: torch.Tensor,
+                        g2: torch.Tensor, seq: int, num_heads: int,
+                        scale: float) -> torch.Tensor:
+    """K3 backward: ``dqkv [B*seq, 3C]`` in qkv's dtype from the saved
+    ``qkv2``, ``lse`` and the context gradient ``g2 [B*seq, C]`` (qkv's
+    dtype).  P is recomputed as ``exp(s - lse)``; dS is cast to qkv's dtype
+    before dq and dk, P before dv; sums are float32."""
+    b, c, _ = _check_flash(qkv2, seq, num_heads)
+    _check(lse, "lse", (_F32,), (b, num_heads, seq))
+    _check(g2, "g", (qkv2.dtype,), (qkv2.shape[0], c))
+    if not _on_cuda(qkv2, lse, g2):
+        return flash_attention_bwd_plain(qkv2, lse, g2, seq, num_heads, scale)
+    dqkv = torch.empty_like(qkv2)
+    scratch = torch.empty((2, b, num_heads, seq, seq), dtype=_F32,
+                          device=qkv2.device)
+    _launch(build().flash_attention_bwd, _ptr(qkv2), _ptr(lse), _ptr(g2),
+            int(qkv2.dtype == _BF16), _ptr(dqkv), _ptr(scratch), b, seq, c,
+            num_heads, float(scale), _stream())
+    return dqkv
+
+
+class FlashMHA(torch.autograd.Function):
+    """K3 with its backward kernel; saves only qkv and the row LSE (as
+    ``_flash_core``'s custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, qkv2, seq, num_heads, scale):
+        out, lse = flash_attention_fwd(qkv2, seq, num_heads, scale)
+        ctx.attn = (seq, num_heads, scale)
+        ctx.save_for_backward(qkv2, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv2, lse = ctx.saved_tensors
+        g2 = _contiguous(g, "flash_mha").to(qkv2.dtype)
+        return flash_attention_bwd(qkv2, lse, g2, *ctx.attn), None, None, None
+
+
+def flash_mha(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Differentiable K3 with the JAX contract (``pallas_kernels.
+    flash_mha``): packed ``qkv [B, N, 3C]`` -> context ``[B, N, C]`` in
+    qkv's dtype, with an explicit score ``scale``."""
+    b, n, c3 = qkv.shape
+    qkv2 = _contiguous(qkv, "flash_mha").view(b * n, c3)
+    return FlashMHA.apply(qkv2, n, num_heads, float(scale)).view(b, n, c3 // 3)
+
+
+def flash_mha_plain(qkv: torch.Tensor, num_heads: int,
+                    scale: float) -> torch.Tensor:
+    """The plain route of :func:`flash_mha`: the forward's math and casts
+    in PyTorch ops, differentiated by autograd."""
+    b, n, c3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv.reshape(b * n, c3), n, num_heads)
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1).to(dt)
+    ctx = (p.float() @ v).to(dt)
+    return ctx.transpose(1, 2).reshape(b, n, c3 // 3)

@@ -1,0 +1,118 @@
+"""Trainer (PyTorch port of ``train/loop.py``), with the reference
+drivers' semantics:
+
+* an epoch walks the dataset cursor to its terminator
+  (``MainNumpy.py:41-66``);
+* eval every ``eval_every_epochs`` epochs;
+* the piecewise-constant learning rate times the plateau scale, which the
+  F1 plateau decay divides by 5 (``TBI_ResNest.py:391,407-412``);
+* training stops once the learning rate falls below ``lr_floor``;
+* a loss equal to the previous epoch's is flagged ``loss_stagnant``
+  (``MainNumpy.py:76-79``);
+* scalars go through the JAX package's ``utils/logging.MetricLogger``
+  (stdlib + numpy, shared as it is).
+
+Left out (ROADMAP Queue 1): meshes (data, tensor and pipeline parallel),
+``scan_epochs``, out-of-core datasets, checkpoint and resume, image panels.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Dict, Optional
+
+import torch
+
+from ultrasound_modeling_tpu.config import Config
+from ultrasound_modeling_tpu.utils.logging import MetricLogger
+from ultrasound_modeling_tpu_torch.data.pipeline import Dataset
+from ultrasound_modeling_tpu_torch.models.registry import build_model
+from ultrasound_modeling_tpu_torch.train import losses, metrics, optim
+from ultrasound_modeling_tpu_torch.train import step as step_mod
+
+
+class Trainer:
+    def __init__(self, cfg: Config, dataset: Dataset, device="cpu",
+                 logger: Optional[MetricLogger] = None):
+        self.cfg = cfg
+        self.dataset = dataset
+        self.device = torch.device(device)
+        tc = cfg.train
+        self.model = build_model(cfg.model)
+        self.logger = logger or MetricLogger()
+        self.loss_fn = losses.get_loss(tc.loss)
+        if tc.label_smoothing != 0.1:
+            self.loss_fn = functools.partial(
+                self.loss_fn, label_smoothing=tc.label_smoothing)
+        self.state = step_mod.TrainState.create(
+            self.model, tc.seed, self.device, clip_norm=tc.clip_global_norm)
+        self.schedule = optim.piecewise_constant(
+            tc.learning_rate, tc.lr_boundaries, tc.lr_values)
+        self.plateau_scale = 1.0
+        self.train_step = step_mod.make_train_step(
+            self.model, self.loss_fn, num_classes=cfg.model.num_classes,
+            augment=cfg.data.augment, flip=cfg.data.aug_flip)
+        self.eval_step = step_mod.make_eval_step(
+            self.model, self.loss_fn, num_classes=cfg.model.num_classes)
+        self.iteration = 0
+        self.last_epoch: Dict[str, float] = {}
+
+    def current_lr(self) -> float:
+        return self.schedule(self.iteration) * self.plateau_scale
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        tc = self.cfg.train
+        t0 = time.perf_counter()
+        n_iters = 0
+        while True:
+            x, y, terminator = self.dataset.next_train(tc.batch_size)
+            loss, _ = self.train_step(self.state, x, y, self.current_lr())
+            self.iteration += 1
+            n_iters += 1
+            if self.iteration % tc.log_every == 0:
+                self.logger.scalars(self.iteration, {
+                    "train_loss": float(loss), "lr": self.current_lr()})
+            if terminator:
+                break
+        last_loss = float(loss)  # waits for the device
+        fps = n_iters * tc.batch_size / max(time.perf_counter() - t0, 1e-9)
+        self.logger.scalars(self.iteration, {
+            "epoch": epoch, "epoch_loss": last_loss, "frames_per_sec": fps})
+        self.last_epoch = {"loss": last_loss, "frames_per_sec": fps,
+                           "iters": n_iters}
+        return self.last_epoch
+
+    def evaluate(self, epoch: int, batch_size: Optional[int] = None
+                 ) -> Dict[str, float]:
+        bs = batch_size or min(16, self.dataset.num_te)
+        mstate = metrics.zeros(self.cfg.model.num_classes, self.device)
+        while True:
+            x, y, terminator = self.dataset.next_test(bs)
+            mstate, _, _ = self.eval_step(self.state, mstate, x, y)
+            if terminator:
+                break
+        summary = metrics.summarize(mstate)
+        self.logger.scalars(self.iteration,
+                            {f"val_{k}": v for k, v in summary.items()})
+        return summary
+
+    def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
+        tc = self.cfg.train
+        epochs = epochs or tc.epochs
+        prev_loss = None
+        f1_prev = 0.0
+        summary: Dict[str, float] = {}
+        for epoch in range(1, epochs + 1):
+            if self.current_lr() < tc.lr_floor:
+                break
+            stats = self.train_epoch(epoch)
+            if prev_loss is not None and prev_loss == stats["loss"]:
+                self.logger.scalars(self.iteration, {"loss_stagnant": 1.0})
+            prev_loss = stats["loss"]
+            if epoch % tc.eval_every_epochs == 0:
+                summary = self.evaluate(epoch)
+                if summary["f1"] < f1_prev:
+                    self.plateau_scale *= tc.plateau_decay
+                f1_prev = summary["f1"]
+        return summary

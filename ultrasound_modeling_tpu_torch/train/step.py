@@ -1,0 +1,94 @@
+"""Train and eval steps (PyTorch port of ``train/step.py``).
+
+The JAX package compiles one XLA program per step; here the step runs
+eagerly, in the same order: augment -> label2vec -> forward in train mode
+(the BatchNorms take batch statistics and update their running statistics
+in place as the forward passes them) -> loss -> backward -> global-norm clip
+-> Adam -> ``p -= lr * update``.  A CUDA graph of the step is later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import torch
+
+from ultrasound_modeling_tpu_torch.data import augment as aug_mod
+from ultrasound_modeling_tpu_torch.data import labels as labels_mod
+from ultrasound_modeling_tpu_torch.train import metrics as metrics_mod
+from ultrasound_modeling_tpu_torch.train.optim import Adam
+from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+    from_flax, random_flax_variables)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (params and BatchNorm running statistics), the optimizer
+    state, the step count and the augmentation generator."""
+
+    model: torch.nn.Module
+    opt: Adam
+    step: int
+    gen: torch.Generator
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, seed: int, device,
+               clip_norm=1.0) -> "TrainState":
+        """Seeded initial weights (``random_flax_variables``: He-normal
+        kernels, through the weight bridge) on ``device``; the generator
+        lives on the same device, so augmentation never leaves it."""
+        model.load_state_dict(from_flax(random_flax_variables(model, seed)),
+                              strict=True)
+        model.to(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return cls(model, Adam(model.parameters(), clip_norm), 0, gen)
+
+
+def make_train_step(model: torch.nn.Module, loss_fn: Callable,
+                    num_classes: int = 3, augment: bool = True,
+                    flip: bool = False):
+    """``(state, x, y_scalar, lr) -> (loss, probs)``, updating ``state`` in
+    place; ``y_scalar`` is the raw label image ``[B, H, W]``."""
+
+    def step_fn(state: TrainState, x: torch.Tensor, y_scalar: torch.Tensor,
+                lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.train()
+        if augment:
+            x, y_scalar = aug_mod.augment_batch(x, y_scalar, state.gen, flip)
+        y = labels_mod.label2vec(y_scalar, num_classes)
+        probs = model(x).float()
+        loss = loss_fn(y, probs)
+        state.opt.zero_grad()
+        loss.backward()
+        state.opt.step(lr)
+        state.step += 1
+        return loss.detach(), probs.detach()
+
+    return step_fn
+
+
+def make_eval_step(model: torch.nn.Module, loss_fn: Callable,
+                   num_classes: int = 3):
+    """``(state, metric_state, x, y_scalar) -> (metric_state, loss, probs)``."""
+
+    @torch.no_grad()
+    def step_fn(state: TrainState, mstate, x, y_scalar):
+        model.eval()
+        y = labels_mod.label2vec(y_scalar, num_classes)
+        probs = model(x).float()
+        loss = loss_fn(y, probs)
+        return metrics_mod.update(mstate, y, probs, loss), loss, probs
+
+    return step_fn
+
+
+def make_forward(model: torch.nn.Module):
+    """Inference forward: ``(state, x) -> probs``."""
+
+    @torch.no_grad()
+    def fwd(state: TrainState, x):
+        model.eval()
+        return model(x).float()
+
+    return fwd
