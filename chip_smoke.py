@@ -10,37 +10,48 @@ Phases (each checks its results; any failure exits non-zero):
 
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
 2. hold every CUDA kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it (K1 one layer at the flagship shape,
-   with and without the folded final LayerNorm; K4 at the TransUNet f32 shape
-   and at a Swin shape), with medians of kernel and plain times;
-3. the full-width TransUNet forward (default config, seeded random weights
-   in the flax layout loaded through the bridge) in f32 and bf16, kernel
-   path against the all-plain path, with launch counts and frames/s;
-4. the serving main path: ``serve`` as a user starts it (npz -> bridge ->
-   model -> the shared ``InferenceServer``), f32 and bf16, answering
-   concurrent ``/predict`` requests; the launch counters are zeroed just
-   before and read just after, and K1's and K4's kernels must have launched;
-5. one train step of the full-width model at batch 32, kernel route (K2,
-   and K3 under flash) against the plain route from the same seeded weights
-   and batch, augmentation off: loss and every parameter gradient, in f32
-   (composed and flash attention) and bf16 (flash); then ms/step and
-   frames/s of the whole step (augmentation on) on both routes, in turns;
-6. the train main path: ``cli train --synthetic --epochs 1`` as a user
-   starts it (batch 32, two optimizer steps) in f32, f32 with
-   ``--attn-train flash`` and ``--bf16 --attn-train flash``; the counters
-   are zeroed just before each run and read just after: K2's forward and
-   backward kernels must have launched in every run, K3's in the flash
-   runs; the loss is finite and every BatchNorm's running statistics moved.
+   the shapes the main paths give it, with medians of kernel and plain
+   times: K1 one layer at the TransUNet shape (b64, S 80, C 512) and the
+   ViT shape (b64, S 160, C 1280, 8 heads), each with and without the
+   folded final LayerNorm; K4 at the TransUNet and ViT f32 shapes and a
+   Swin shape; K2 (forward and backward, f32 and bf16, LeakyReLU folded,
+   at the stage-1 and stage-4 branch2 and the stage-1 branch1 shapes of
+   batch 32); K3 (forward and backward, f32 and bf16, b32 x 80 tokens, C
+   512); K5's forward (out, saved qkv and P; f32 and bf16) at the ViT (b8,
+   N 160, C 1280) and TransUNet (b32, N 80, C 512) train shapes; K6 on
+   [32, 256, 80] labels;
+3. the full-width forward (default config, seeded random weights in the
+   flax layout loaded through the bridge) in f32 and bf16, kernel path
+   against the all-plain path, with launch counts and frames/s: 3 the
+   TransUNet, 3b the ViT, batch 64;
+4. the serving main paths: ``serve --model {transunet,vit}`` as a user
+   starts it (npz -> bridge -> model -> the shared ``InferenceServer``),
+   f32 and bf16, answering concurrent ``/predict`` requests; the launch
+   counters are zeroed just before each and read just after, and K1's and
+   K4's kernels must have launched;
+5. one train step at full width and each family's batch (TransUNet 32, ViT
+   8), kernel route (K2 in the TransUNet; K3 under flash, K5 under pallas)
+   against the plain route from the same seeded weights and batch,
+   augmentation off: loss and every parameter gradient, TransUNet f32
+   composed, flash and pallas and bf16 flash, ViT f32 composed, flash and
+   pallas and bf16 pallas and flash; then ms/step and frames/s of the
+   whole step (augmentation on) on both routes, in turns;
+6. the train main paths: ``cli train --synthetic --epochs 1`` as a user
+   starts it: the TransUNet in f32, f32 ``--attn-train flash`` and ``--bf16
+   --attn-train flash`` (batch 32, two steps), the ViT with ``--attn-train
+   pallas`` and ``--bf16 --attn-train flash`` (batch 8, eight steps); the
+   counters are zeroed just before each run and read just after: K2 must
+   have launched in every TransUNet run, K3 in the flash runs, K5 in the
+   pallas run; the loss is finite and the weights (and the TransUNet's
+   BatchNorm running statistics) moved;
+7. K6, which no path of the system calls, as a caller uses it: the
+   smoothed targets of a batch's labels, against ``label2vec`` plus the
+   smoothing.
 
-Phase 2 also holds the train kernels K2 (forward and backward, f32 and
-bf16, LeakyReLU folded in, at the stage-1 and stage-4 branch2 shapes and
-the stage-1 branch1 shape of batch 32) and K3 (forward and backward, f32
-and bf16, batch 32 x 80 tokens, C 512, 4 heads) against their plain
-versions.
-
-The line before the last is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result.  JAX is never imported.
+The line before the last is a JSON summary of the kernels (launches summed
+over the main paths above); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
+and prints no result.  JAX is never imported.
 """
 
 from __future__ import annotations
@@ -72,14 +83,21 @@ K2_FWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1037"
 K2_BWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1066"
 K3_FWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:583"
 K3_BWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:614"
+K5_SRC = f"{PKG}/csrc/attention_train.cu"
+K6_SRC = f"{PKG}/csrc/label2vec.cu"
+K5_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:311"
+K6_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1157"
 BATCH = 64  # the serving batch (cli serve --max-batch default)
-TRAIN_BATCH = 32  # TrainConfig.batch_size
+# TrainConfig.batch_size of each family
+TRAIN_BATCH = {"transunet": 32, "vit": 8}
 # the kernels each main path must launch
 SERVE_KERNELS = ("transformer_block", "window_attention", "tb_layer_norm",
                  "tb_linear", "tb_attention_core", "wa_linear",
                  "wa_attention_core")
 K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+K5_KERNELS = ("attention_train", "at_attention_core")
+K6_KERNELS = ("label2vec_smooth",)
 
 
 def log(msg: str) -> None:
@@ -202,7 +220,7 @@ def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
             require(torch.equal(again[1], first[1])
                     and torch.equal(again[2], first[2]),
                     f"K2 dscale/dbias differ between runs at {label}")
-    b_, n, c, heads, scale = TRAIN_BATCH, 80, 512, 4, 0.5
+    b_, n, c, heads, scale = TRAIN_BATCH["transunet"], 80, 512, 4, 0.5
     qk = rand(b_ * n, 2 * c, scale=0.3)
     for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         qkv = torch.cat([qk, rand(b_ * n, c)], dim=1).to(dt)
@@ -327,30 +345,113 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
                    f32_tol, "1e-4 x max(1,|plain|)")
 
 
-def flagship(seed: int):
-    """The default-config TransUNet with seeded random flax-layout weights
-    (q/k kernels damped), loaded through the bridge; returns (model,
-    flat flax dict)."""
+def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
+    """The kernels at the ViT's shapes (K1, K4), K5 at the ViT and
+    TransUNet train shapes, and K6, against their plain versions."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 11)
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    bf = torch.bfloat16
+    log("phase 2 (ViT shapes, K5, K6): kernels vs plain PyTorch on the card")
+    # K5 forward: out, saved qkv and P, at the ViT b8 and TransUNet b32
+    # train shapes; q/k kernels damped as in random_flax_variables
+    for b, n, c, heads in ((8, 160, 1280, 8), (32, 80, 512, 4)):
+        lin = c ** -0.5
+        xw = rand(b * n, c)
+        ws = (torch.cat([rand(2 * c, c, scale=0.05 * lin), rand(c, c, scale=lin)]),
+              rand(3 * c, scale=0.1), rand(c, c, scale=lin), rand(c, scale=0.1))
+        for dt, dname in ((torch.float32, "f32"), (bf, "bf16")):
+            args = (xw.to(dt), ws[0].to(dt), ws[1].to(dt).float(), ws[2].to(dt),
+                    ws[3].to(dt).float(), n, heads, heads ** -0.5)
+            tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if dname == "f32"
+                         else (bf16_quanta(2), "2 bf16 quanta"))
+            label = f"K5 b{b} N{n} C{c} h{heads} {dname}"
+            checks.compare("attention_train", label,
+                           lambda: K.attention_train_fwd(*args),
+                           lambda: K.attention_train_fwd_plain(*args),
+                           (tol, tol, tol), f"out, qkv, P {text}")
+            if b == 8:
+                cargs = (K.linear_plain(*args[:3]), n, heads, heads ** -0.5, dt)
+                checks.compare("at_attention_core", f"b{b} S{n} h{heads} "
+                               f"d{c // heads} {dname}",
+                               lambda: K.attention_train_core(*cargs),
+                               lambda: K.attention_train_core_plain(*cargs),
+                               (tol, tol, tol), f"ctx, qkv, P {text}")
+    # K1 at the ViT serving shape: batch 64 x 160 tokens, C 1280, 8 heads
+    b, s, c, heads, mlp = BATCH, 160, 1280, 8, 2048
+    eps, scale, lin = 1e-6, 8 ** -0.5, c ** -0.5
+    w = K.BlockWeights(
+        1 + rand(c, scale=0.1), rand(c, scale=0.1),
+        torch.cat([rand(2 * c, c, scale=lin * 0.05), rand(c, c, scale=lin)]).to(bf),
+        rand(3 * c, scale=0.1), rand(c, c, scale=lin, dtype=bf),
+        rand(c, scale=0.1), 1 + rand(c, scale=0.1), rand(c, scale=0.1),
+        rand(mlp, c, scale=lin, dtype=bf), rand(mlp, scale=0.1),
+        rand(c, mlp, scale=mlp ** -0.5, dtype=bf), rand(c, scale=0.1))
+    x = rand(b, s, c, dtype=bf)
+    fin = (1 + rand(c, scale=0.1), rand(c, scale=0.1))
+    checks.compare("transformer_block", "K1 ViT b64 S160 C1280 h8 bf16",
+                   lambda: K.transformer_block(x, w, heads, scale, eps),
+                   lambda: K.transformer_block_plain(x, w, heads, scale, eps),
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+    checks.compare("transformer_block", "K1 ViT same, folded final LN",
+                   lambda: K.transformer_block(x, w, heads, scale, eps, fin),
+                   lambda: K.transformer_block_plain(x, w, heads, scale, eps, fin),
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+    del x, w
+    # K4 at the ViT f32 serving shape: 64 windows of 160 tokens, no bias
+    xf = rand(b, s, c)
+    args = (xf, torch.cat([rand(2 * c, c, scale=lin * 0.05), rand(c, c, scale=lin)]),
+            rand(3 * c, scale=0.1), rand(c, c, scale=lin), rand(c, scale=0.1), heads)
+    checks.compare("window_attention", "K4 ViT b64 N160 C1280 h8 f32",
+                   lambda: K.window_attention(*args, scale=scale),
+                   lambda: K.window_attention_plain(*args, scale=scale),
+                   f32_tol, "1e-4 x max(1,|plain|)")
+    del xf, args
+    # K6 on a train batch's labels, straddling the 0.95 / 1.05 thresholds
+    lab = torch.rand(TRAIN_BATCH["transunet"], 256, 80, generator=g).to(dev) * 2.3 - 0.1
+    for sm in (0.0, 0.1):
+        checks.compare("label2vec_smooth", f"K6 [32,256,80] smoothing {sm}",
+                       lambda: K.label2vec_smooth(lab, sm),
+                       lambda: K.label2vec_smooth_plain(lab, sm),
+                       lambda want: 0.0, "exact")
+
+
+def seeded_model(family: str, seed: int, dtype: str = "f32",
+                 attn_train_impl: str = "xla"):
+    """The family's default-config model with seeded random flax-layout
+    weights (q/k kernels damped), loaded through the bridge; returns
+    (model, flat flax dict)."""
+    import dataclasses
     from ultrasound_modeling_tpu.config import default_config
     from ultrasound_modeling_tpu_torch.models.registry import build_model
     from ultrasound_modeling_tpu_torch.utils.checkpoint import (
         from_flax, random_flax_variables)
 
-    model = build_model(default_config("transunet").model)
+    mcfg = dataclasses.replace(
+        default_config(family).model,
+        compute_dtype="bfloat16" if dtype == "bf16" else "float32",
+        attn_train_impl=attn_train_impl)
+    model = build_model(mcfg)
     flat = random_flax_variables(model, seed)
-    model.load_state_dict(from_flax(flat), strict=True)
-    return model.eval(), flat
+    model.load_state_dict(from_flax(flat, model.family), strict=True)
+    return model, flat
 
 
-def phase_forward(dev, seed: int, batch: int):
+def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
     """Full-width forward, kernel vs all-plain path, f32 and bf16."""
     import numpy as np
     import torch
     from ultrasound_modeling_tpu_torch.ops import kernels as K
 
-    log(f"phase 3: full-width TransUNet forward, batch {batch}")
-    model, flat = flagship(seed)
-    model = model.to(dev)
+    log(f"phase {phase}: full-width {family} forward, batch {batch}")
+    model, flat = seeded_model(family, seed)
+    model = model.eval().to(dev)
+    layers = sum(type(m).__name__ == "Block" for m in model.modules())
     x = np.random.default_rng(seed + 1).standard_normal(
         (batch, 256, 80, 10)).astype(np.float32)
     xt = torch.from_numpy(x).to(dev)
@@ -376,7 +477,7 @@ def phase_forward(dev, seed: int, batch: int):
             sum_err = (p.sum(-1) - 1).abs().max().item()
             require(sum_err < 1e-4, f"{name}/{impl}: probs sum off by {sum_err}")
             if impl == "kernel":
-                want_k1, want_k4 = (8, 0) if name == "bf16" else (0, 8)
+                want_k1, want_k4 = (layers, 0) if name == "bf16" else (0, layers)
                 require(counts["transformer_block"] == want_k1,
                         f"{name}: K1 launches {counts}, want {want_k1}")
                 require(counts["window_attention"] == want_k4,
@@ -397,27 +498,29 @@ def phase_forward(dev, seed: int, batch: int):
         f"argmax agreement {agree:.6f} (bound 0.99)")
     require(dbf <= 0.05 and agree >= 0.99,
             f"bf16 kernel vs plain: diff {dbf}, argmax agreement {agree}")
-    model.to("cpu")
+    del model
     torch.cuda.empty_cache()
     return x, {k: v[:8].cpu().numpy() for k, v in outs.items()}, flat
 
 
-def phase_serve(dev, x, ref, flat, tmp: str):
-    """The main path: serve from an npz, as `cli serve` does, f32 and bf16."""
+def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
+    """A main path: serve from an npz, as `cli serve --model family` does,
+    f32 and bf16."""
     import numpy as np
     from ultrasound_modeling_tpu.infer.server import InferenceServer
     from ultrasound_modeling_tpu_torch import cli
     from ultrasound_modeling_tpu_torch.ops import kernels as K
 
-    log("phase 4: serve (npz -> bridge -> model -> InferenceServer)")
-    path = os.path.join(tmp, "params.npz")
+    log(f"phase {phase}: serve --model {family} (npz -> bridge -> model -> "
+        f"InferenceServer)")
+    path = os.path.join(tmp, f"{family}.npz")
     np.savez(path, **flat)
     K.reset_launch_counts()
     for name, bf16 in (("f32", False), ("bf16", True)):
-        model = cli.build_serving_model(path, bf16, dev)
+        model = cli.build_serving_model(path, bf16, dev, family)
         server = InferenceServer(cli.make_forward(model, dev), (256, 80, 10),
                                  host="127.0.0.1", port=0, max_batch=64,
-                                 window_ms=5.0, model_name="transunet")
+                                 window_ms=5.0, model_name=family)
         server.start_background()
         host, port = server.address
         url = f"http://{host}:{port}"
@@ -477,6 +580,7 @@ def phase_serve(dev, x, ref, flat, tmp: str):
     log(f"  main-path launches: {counts}")
     missing = [k for k, v in counts.items() if v == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
+    os.remove(path)
     return counts
 
 
@@ -487,51 +591,57 @@ def phase_serve(dev, x, ref, flat, tmp: str):
 ZERO_GRAD = re.compile(
     r"(decoder/block_\d/conv\d_\d|hybrid/convtmp_\d)/bias$|attn/key_bias$")
 
-TRAIN_RUNS = (("f32", "composed", []), ("f32", "flash", ["--attn-train", "flash"]),
-              ("bf16", "flash", ["--bf16", "--attn-train", "flash"]))
+# (family, dtype, train attention, cli flags): phase 5 runs them all, phase
+# 6 the ones marked True
+TRAIN_RUNS = (
+    ("transunet", "f32", "xla", [], True),
+    ("transunet", "f32", "flash", ["--attn-train", "flash"], True),
+    ("transunet", "bf16", "flash", ["--bf16", "--attn-train", "flash"], True),
+    ("transunet", "f32", "pallas", ["--attn-train", "pallas"], False),
+    ("vit", "f32", "xla", ["--attn-train", "xla"], False),
+    ("vit", "f32", "flash", ["--attn-train", "flash"], False),
+    ("vit", "f32", "pallas", ["--attn-train", "pallas"], True),
+    ("vit", "bf16", "pallas", ["--bf16", "--attn-train", "pallas"], False),
+    ("vit", "bf16", "flash", ["--bf16", "--attn-train", "flash"], True))
 
 
-def train_model(seed: int, dtype: str, attn_train_impl: str):
-    """The full-width default-config TransUNet in train mode with the seeded
-    flax-layout weights, and its flat flax-layout variables."""
-    import dataclasses
-    from ultrasound_modeling_tpu.config import default_config
-    from ultrasound_modeling_tpu_torch.models.registry import build_model
-    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
-        from_flax, random_flax_variables)
-
-    mcfg = dataclasses.replace(
-        default_config("transunet").model,
-        compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-        attn_train_impl="flash" if attn_train_impl == "flash" else "xla")
-    model = build_model(mcfg)
-    flat = random_flax_variables(model, seed)
-    model.load_state_dict(from_flax(flat), strict=True)
-    return model.train(), flat
+def needed_kernels(family: str, impl: str):
+    """The train kernels a step of this family and attention launches."""
+    return ((K2_KERNELS if family == "transunet" else ())
+            + {"flash": K3_KERNELS, "pallas": K5_KERNELS}.get(impl, ()))
 
 
 def phase_train_step(dev, seed: int):
     """One train step, kernel route vs plain route, then timed steps."""
     import numpy as np
     import torch
+    from ultrasound_modeling_tpu.config import default_config
     from ultrasound_modeling_tpu_torch.data import synthetic
     from ultrasound_modeling_tpu_torch.data.labels import label2vec
     from ultrasound_modeling_tpu_torch.ops import kernels as K
-    from ultrasound_modeling_tpu_torch.train.losses import cce_smooth
+    from ultrasound_modeling_tpu_torch.train import losses
     from ultrasound_modeling_tpu_torch.train.optim import Adam
     from ultrasound_modeling_tpu_torch.train.step import (
         TrainState, make_train_step)
     from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
 
-    log(f"phase 5: full-width train step, batch {TRAIN_BATCH}, kernel route "
-        f"vs plain route")
-    raw = synthetic.make_raw_array(TRAIN_BATCH, seed + 2)
-    x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(dev)
-    y = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(dev)
-    for dtype, impl, _ in TRAIN_RUNS:
-        name = f"{dtype}/{impl}"
-        model, _ = train_model(seed, dtype, impl)
-        model.to(dev)
+    log("phase 5: full-width train step at each family's batch, kernel "
+        "route vs plain route")
+    batches = {}
+    for family, bs in TRAIN_BATCH.items():
+        raw = synthetic.make_raw_array(bs, seed + 2)
+        batches[family] = (
+            torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(dev))
+    step_ms = {}
+    for family, dtype, impl, _, _ in TRAIN_RUNS:
+        name = f"{family}/{dtype}/{impl}"
+        bs = TRAIN_BATCH[family]
+        x, y = batches[family]
+        l2 = default_config(family).train.l2_regularization
+        model, _ = seeded_model(family, seed, dtype, impl)
+        model.train().to(dev)
+        kernels = losses.l2_kernels(model) if l2 else []
         res = {}
         # deterministic cuDNN for the comparison: its default weight-gradient
         # algorithms sum in an order that changes from run to run
@@ -540,17 +650,20 @@ def phase_train_step(dev, seed: int):
             model.set_train_route(route)
             model.zero_grad(set_to_none=True)
             K.reset_launch_counts()
-            loss = cce_smooth(label2vec(y), model(x).float())
+            loss = losses.cce_smooth(label2vec(y), model(x).float())
+            if l2:
+                loss = loss + losses.l2_regularization(kernels, l2)
             loss.backward()
             torch.cuda.synchronize()
             counts = {k: v for k, v in K.LAUNCHES.items() if v}
             copies = dict(K.LAYOUT_COPIES)
-            grads = to_flax({n: p.grad for n, p in model.named_parameters()})
+            grads = to_flax({n: p.grad for n, p in model.named_parameters()},
+                            model.family)
             res[route] = (loss.item(), grads)
-            log(f"  {name:12s} {route:6s} loss {loss.item():.6f}  launches "
+            log(f"  {name:22s} {route:6s} loss {loss.item():.6f}  launches "
                 f"{counts}  layout copies {copies}")
             if route == "kernel":
-                need = K2_KERNELS + (K3_KERNELS if impl == "flash" else ())
+                need = needed_kernels(family, impl)
                 require(all(counts.get(k, 0) > 0 for k in need),
                         f"{name}: kernel route did not launch {need}: {counts}")
             else:
@@ -580,12 +693,12 @@ def phase_train_step(dev, seed: int):
                 if r > worst:
                     worst, worst_key = r, k
         if bf16:
-            log(f"  {name:12s} loss rel diff {loss_rel:.3e} (bound 1e-2); "
+            log(f"  {name:22s} loss rel diff {loss_rel:.3e} (bound 1e-2); "
                 f"worst leaf cosine {worst:.6f} at {worst_key} (bound 0.99)")
             require(loss_rel <= 1e-2 and worst >= 0.99,
                     f"{name}: loss rel {loss_rel}, cosine {worst} at {worst_key}")
         else:
-            log(f"  {name:12s} loss rel diff {loss_rel:.3e} (bound 1e-5); "
+            log(f"  {name:22s} loss rel diff {loss_rel:.3e} (bound 1e-5); "
                 f"worst leaf max|dg|/max|g| {worst:.3e} at {worst_key} "
                 f"(bound 1e-3)")
             require(loss_rel <= 1e-5 and worst <= 1e-3,
@@ -594,7 +707,7 @@ def phase_train_step(dev, seed: int):
         model.zero_grad(set_to_none=True)
         state = TrainState(model, Adam(model.parameters(), 1.0), 0,
                            torch.Generator(device=dev).manual_seed(seed))
-        step = make_train_step(model, cce_smooth)
+        step = make_train_step(model, losses.cce_smooth, l2_scale=l2)
         per = {"kernel": [], "plain": []}
         for route in ("plain", "kernel", "kernel", "plain"):
             model.set_train_route(route)
@@ -607,54 +720,93 @@ def phase_train_step(dev, seed: int):
             torch.cuda.synchronize()
             per[route].append((time.perf_counter() - t0) / 5 * 1e3)
         ms = {r: statistics.mean(v) for r, v in per.items()}
-        log(f"  {name:12s} step ms/step kernel {ms['kernel']:.2f} "
-            f"({1e3 * TRAIN_BATCH / ms['kernel']:.1f} frames/s), plain "
-            f"{ms['plain']:.2f} ({1e3 * TRAIN_BATCH / ms['plain']:.1f} "
+        step_ms[name] = ms
+        log(f"  {name:22s} step ms/step kernel {ms['kernel']:.2f} "
+            f"({1e3 * bs / ms['kernel']:.1f} frames/s), plain "
+            f"{ms['plain']:.2f} ({1e3 * bs / ms['plain']:.1f} "
             f"frames/s); turns {per}")
         del model, state, res
         torch.cuda.empty_cache()
+    return step_ms
 
 
 def phase_cli_train(dev, seed: int, tmp: str):
-    """The train main path: cli train as a user starts it, three ways."""
+    """The train main paths: cli train as a user starts it, for each run
+    of TRAIN_RUNS marked for it; counters zeroed before each, read after."""
     import numpy as np
     from ultrasound_modeling_tpu_torch import cli
     from ultrasound_modeling_tpu_torch.ops import kernels as K
     from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
 
-    log("phase 6: cli train --synthetic --epochs 1 (batch 32, two steps)")
-    total = {k: 0 for k in K2_KERNELS + K3_KERNELS}
-    for dtype, impl, flags in TRAIN_RUNS:
-        name = f"{dtype}/{impl}"
-        argv = ["train", "--synthetic", "--epochs", "1", "--device", "cuda",
-                "--seed", str(seed), "--log-dir",
+    log("phase 6: cli train --synthetic --epochs 1")
+    total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS}
+    for family, dtype, impl, flags, in_cli in TRAIN_RUNS:
+        if not in_cli:
+            continue
+        name = f"{family}/{dtype}/{impl}"
+        argv = ["train", "--model", family, "--synthetic", "--epochs", "1",
+                "--device", "cuda", "--seed", str(seed), "--log-dir",
                 os.path.join(tmp, name.replace("/", "_")), *flags]
         K.reset_launch_counts()
         trainer = cli.main(argv)
         counts = dict(K.LAUNCHES)
         copies = dict(K.LAYOUT_COPIES)
         ep = trainer.last_epoch
-        need = K2_KERNELS + (K3_KERNELS if impl == "flash" else ())
-        log(f"  {name:12s} launches { {k: counts[k] for k in total} } "
+        need = needed_kernels(family, impl)
+        log(f"  {name:22s} launches { {k: counts[k] for k in total} } "
             f"layout copies {copies}")
         require(all(counts[k] > 0 for k in need),
                 f"{name}: cli train did not launch {need}: {counts}")
-        require(ep["iters"] == 2 and np.isfinite(ep["loss"]),
+        steps = -(-max(64, 2 * TRAIN_BATCH[family]) // TRAIN_BATCH[family])
+        require(ep["iters"] == steps and np.isfinite(ep["loss"]),
                 f"{name}: epoch {ep}")
-        _, init = train_model(seed, dtype, impl)
-        now = to_flax(trainer.model.state_dict())
+        _, init = seeded_model(family, seed, dtype, impl)
+        now = to_flax(trainer.model.state_dict(), trainer.model.family)
         stats = [k for k in init if k.startswith("batch_stats/")]
-        still = [k for k in stats if np.array_equal(now[k], init[k])]
-        require(stats and not still,
-                f"{name}: BatchNorm running statistics did not move: {still}")
-        log(f"  {name:12s} loss {ep['loss']:.4f}  {ep['frames_per_sec']:.1f} "
-            f"frames/s  {1e3 * TRAIN_BATCH / ep['frames_per_sec']:.1f} ms/step "
-            f"(epoch of 2 steps, the first one's warm-up included); "
-            f"{len(stats)} running statistics moved")
+        still = [k for k in init if np.array_equal(now[k], init[k])]
+        if family == "transunet":   # BatchNorm running statistics moved
+            require(stats and not set(stats) & set(still),
+                    f"{name}: BatchNorm running statistics did not move: {still}")
+        require(len(still) < len(init) // 2,
+                f"{name}: {len(still)} of {len(init)} leaves did not move")
+        bs = TRAIN_BATCH[family]
+        log(f"  {name:22s} loss {ep['loss']:.4f}  {ep['frames_per_sec']:.1f} "
+            f"frames/s  {1e3 * bs / ep['frames_per_sec']:.1f} ms/step "
+            f"(epoch of {steps} steps, the first one's warm-up included); "
+            f"{len(init) - len(still)} of {len(init)} leaves moved")
         for k in total:
             total[k] += counts[k]
         del trainer
     return total
+
+
+def phase_label2vec(dev, seed: int):
+    """K6 as a caller uses it (it has no path in the system): the smoothed
+    3-class targets of a train batch's labels, counters zeroed just before
+    and read just after, against data/labels.label2vec plus the smoothing
+    of train/losses.cce_smooth."""
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch.data import synthetic
+    from ultrasound_modeling_tpu_torch.data.labels import label2vec
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log("phase 7: label2vec_smooth (K6), standalone")
+    raw = synthetic.make_raw_array(TRAIN_BATCH["transunet"], seed + 3)
+    y = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(dev)
+    K.reset_launch_counts()
+    got = K.label2vec_smooth(y, 0.1)
+    torch.cuda.synchronize()
+    counts = {k: K.LAUNCHES[k] for k in K6_KERNELS}
+    want = label2vec(y) * 0.9 + 0.1 / 3
+    err = (got - want).abs().max().item()
+    log(f"  [{', '.join(map(str, y.shape))}] labels -> {tuple(got.shape)}, "
+        f"max abs diff to label2vec + smoothing {err:.3e} (bound 1e-6); "
+        f"launches {counts}")
+    require(got.shape == (*y.shape, 3) and err <= 1e-6,
+            f"K6: shape {tuple(got.shape)}, err {err}")
+    require(counts["label2vec_smooth"] == 1, f"K6 launches {counts}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -697,15 +849,27 @@ def main(argv=None) -> int:
         log(f"  ptxas: {ln}")
 
     checks = Checks()
+    # launches per kernel summed over the main paths, each path driven with
+    # the counters zeroed just before it and read just after
+    counts = {}
+
+    def add(path_counts):
+        for k, v in path_counts.items():
+            counts[k] = counts.get(k, 0) + v
+
     try:
         phase_kernels(checks, dev, args.seed)
         phase_train_kernels(checks, dev, args.seed)
-        x, ref, flat = phase_forward(dev, args.seed, BATCH)
+        phase_vit_kernels(checks, dev, args.seed)
         with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
-            counts = phase_serve(dev, x, ref, flat, tmp)
-            del x, ref, flat
+            for family, phase in (("transunet", "3"), ("vit", "3b")):
+                x, ref, flat = phase_forward(dev, args.seed, BATCH, family, phase)
+                add(phase_serve(dev, x, ref, flat, tmp, family,
+                                phase.replace("3", "4")))
+                del x, ref, flat
             phase_train_step(dev, args.seed)
-            counts.update(phase_cli_train(dev, args.seed, tmp))
+            add(phase_cli_train(dev, args.seed, tmp))
+        add(phase_label2vec(dev, args.seed))
         require(not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules),
                 "jax or flax was imported")
     except SmokeFailure as e:
@@ -720,7 +884,15 @@ def main(argv=None) -> int:
              "group_flat_norm_fwd": (K2_SRC, K2_FWD_TPU),
              "group_flat_norm_bwd": (K2_SRC, K2_BWD_TPU),
              "flash_attention_fwd": (K3_SRC, K3_FWD_TPU),
-             "flash_attention_bwd": (K3_SRC, K3_BWD_TPU)}
+             "flash_attention_bwd": (K3_SRC, K3_BWD_TPU),
+             "attention_train": (K5_SRC, K5_TPU),
+             "at_attention_core": (K5_SRC, K5_TPU),
+             "label2vec_smooth": (K6_SRC, K6_TPU)}
+    idle = [name for name in where if not counts.get(name)]
+    if idle:
+        print(f"chip_smoke.py: FAIL: launched no time on their main paths: "
+              f"{idle}", file=sys.stderr)
+        return 1
     kernels = []
     for name, (src, tpu) in where.items():
         r = checks.results[name]

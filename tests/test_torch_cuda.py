@@ -220,6 +220,61 @@ def test_autograd_functions_launch_backward_kernels(cuda):
         assert (got - want).abs().max().item() <= _f32_tol(want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,seq,c,heads", [(8, 160, 1280, 8), (32, 80, 512, 4),
+                                           (3, 20, 48, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_attention_train_fwd_matches_plain(cuda, b, seq, c, heads, dtype):
+    """K5 forward (out, saved qkv, P) at the ViT and TransUNet train shapes
+    and a small ragged one; then AttentionTrainFused's gradients against
+    autograd of the plain route."""
+    g = torch.Generator().manual_seed(8)
+    lin = c ** -0.5
+    x = _rand(g, cuda, b * seq, c, dtype=dtype)
+    qkv_w = torch.cat([_rand(g, cuda, 2 * c, c, scale=0.3 * lin),
+                       _rand(g, cuda, c, c, scale=lin)]).to(dtype)
+    qkv_b = _rand(g, cuda, 3 * c, scale=0.1).to(dtype).float()
+    proj_w = _rand(g, cuda, c, c, scale=lin, dtype=dtype)
+    proj_b = _rand(g, cuda, c, scale=0.1).to(dtype).float()
+    args = (x, qkv_w, qkv_b, proj_w, proj_b, seq, heads, heads ** -0.5)
+    K.reset_launch_counts()
+    got = K.attention_train_fwd(*args)
+    want = K.attention_train_fwd_plain(*args)
+    f32 = dtype == torch.float32
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype == dtype and gt.shape == wt.shape
+        tol = _f32_tol(wt) if f32 else _quanta(wt, 2)
+        assert (gt.float() - wt.float()).abs().max().item() <= tol
+    assert K.LAUNCHES["attention_train"] == 1
+    assert K.LAUNCHES["at_attention_core"] == 1
+    assert K.LAUNCHES["tb_linear" if not f32 else "wa_linear"] == 2
+
+    leaves = [t.detach().clone().requires_grad_() for t in args[:5]]
+    x3 = leaves[0].view(b, seq, c)
+    out = K.attention_train_fused(x3, *leaves[1:], heads, heads ** -0.5)
+    go = _rand(g, cuda, b, seq, c, dtype=dtype)
+    grads = torch.autograd.grad(out, leaves, go)
+    ref = K.attention_train_fused_plain(x3, *leaves[1:], heads, heads ** -0.5)
+    for gt, wt in zip(grads, torch.autograd.grad(ref, leaves, go)):
+        assert gt.dtype == wt.dtype
+        tol = _f32_tol(wt) if f32 else _quanta(wt, 8)
+        assert (gt.float() - wt.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_label2vec_smooth_matches_plain(cuda, smoothing):
+    """K6 on labels straddling 0.95 and 1.05: the same bits as the plain
+    version (rounded multiply, then add)."""
+    g = torch.Generator().manual_seed(9)
+    lab = (torch.rand(32, 256, 80, generator=g) * 2.3 - 0.1).to(cuda)
+    lab.view(-1)[:4] = torch.tensor([0.95, 1.05, 2.0, 0.0])
+    K.reset_launch_counts()
+    got = K.label2vec_smooth(lab, smoothing)
+    assert K.LAUNCHES["label2vec_smooth"] == 1
+    assert torch.equal(got, K.label2vec_smooth_plain(lab, smoothing))
+
+
 def test_wrapper_device_routing():
     """Without a card a CUDA tensor cannot even be made; with one, the
     wrapper launches (counted) — it never computes a CUDA input on the

@@ -97,7 +97,7 @@ def test_cuda_device_without_card_raises(monkeypatch, tmp_path):
 def test_build_model_names_unported_families():
     from ultrasound_modeling_tpu.config import default_config
     from ultrasound_modeling_tpu_torch.models.registry import build_model
-    for name in ("vit", "swin", "resnest_unet", "mobileunet"):
+    for name in ("swin", "resnest_unet", "mobileunet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(default_config(name).model)
     m = build_model(default_config("transunet").model)

@@ -5,8 +5,8 @@ Training mirrors the JAX package's ``cli train`` (default config, the
 reference's schedule, clip and Adam)::
 
     python -m ultrasound_modeling_tpu_torch.cli train --synthetic \
-        [--epochs N] [--batch-size B] [--bf16] [--attn-train {xla,flash}] \
-        [--seed S] [--device cuda]
+        [--model {transunet,vit}] [--epochs N] [--batch-size B] [--bf16] \
+        [--attn-train {xla,flash,pallas}] [--seed S] [--device cuda]
 
 Serving takes weights from the JAX side as a flax-layout npz
 (``utils/checkpoint``)::
@@ -16,11 +16,13 @@ Serving takes weights from the JAX side as a flax-layout npz
     save_params_npz({"params": state.params,
                      "batch_stats": state.batch_stats}, "P.npz")
     # port
-    python -m ultrasound_modeling_tpu_torch.cli serve --params P.npz [--bf16]
+    python -m ultrasound_modeling_tpu_torch.cli serve [--model vit] \
+        --params P.npz [--bf16]
 
 The server is the JAX package's ``infer/server.py`` (stdlib + numpy, shared
 as it is) over this port's forward; ``/predict`` takes float32 NHWC frames
-``[B, 256, 80, 10]`` and answers float32 probabilities ``[B, 256, 80, 3]``.
+``[B, 256, 80, 10]`` and answers float32 probabilities ``[B, 256, 80, 3]``
+(both families).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import torch
 
 from ultrasound_modeling_tpu.config import default_config
 
+PORTED = ("transunet", "vit")   # the model families this port builds
+
 
 def resolve_device(name: str) -> torch.device:
     """The device the user asked for; a CUDA request without a card is an
@@ -46,19 +50,21 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def build_serving_model(params_path: str, bf16: bool,
-                        device: torch.device) -> torch.nn.Module:
-    """The default-config model with weights from a flax-layout npz."""
+def build_serving_model(params_path: str, bf16: bool, device: torch.device,
+                        model_name: str = "transunet") -> torch.nn.Module:
+    """The family's default-config model with weights from a flax-layout
+    npz."""
     from ultrasound_modeling_tpu_torch.models.common import full_f32_matmuls
     from ultrasound_modeling_tpu_torch.models.registry import build_model
     from ultrasound_modeling_tpu_torch.utils.checkpoint import load_params_npz
 
     full_f32_matmuls()
-    mcfg = default_config("transunet").model
+    mcfg = default_config(model_name).model
     if bf16:
         mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16")
     model = build_model(mcfg)
-    model.load_state_dict(load_params_npz(params_path), strict=True)
+    model.load_state_dict(load_params_npz(params_path, model.family),
+                          strict=True)
     return model.to(device).eval()
 
 
@@ -81,20 +87,20 @@ def cmd_serve(args) -> None:
             "npz; see `python -m ultrasound_modeling_tpu_torch.cli -h`) — "
             "otherwise the server would answer from random parameters")
     device = resolve_device(args.device)
-    model = build_serving_model(args.params, args.bf16, device)
-    mcfg = default_config("transunet").model
+    model = build_serving_model(args.params, args.bf16, device, args.model)
+    mcfg = default_config(args.model).model
     h, w = mcfg.img_size
     sample_shape = (h, w, mcfg.in_channels)
     server = InferenceServer(make_forward(model, device), sample_shape,
                              host=args.host, port=args.port,
                              max_batch=args.max_batch,
-                             window_ms=args.window_ms, model_name="transunet")
+                             window_ms=args.window_ms, model_name=args.model)
     host, port = server.address
     if args.warmup:
         print(f"warming {len(server.batcher.buckets)} batch buckets "
               f"{server.batcher.buckets} ...", flush=True)
         server.batcher.warmup(sample_shape)
-    print(f"serving transunet ({'bf16' if args.bf16 else 'f32'}, {device}, "
+    print(f"serving {args.model} ({'bf16' if args.bf16 else 'f32'}, {device}, "
           f"frames {sample_shape}, max_batch {args.max_batch}, window "
           f"{args.window_ms} ms) on http://{host}:{port}", flush=True)
     try:
@@ -155,22 +161,25 @@ def make_parser() -> argparse.ArgumentParser:
                                  description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("train", help="train a model (default config)")
-    t.add_argument("--model", default="transunet",
-                   help="model family; only transunet is ported")
+    t.add_argument("--model", default="transunet", choices=PORTED,
+                   help="model family (the ported ones)")
     t.add_argument("--epochs", type=int, default=None,
                    help="defaults to the config value (50)")
     t.add_argument("--batch-size", type=int, default=None,
-                   help="defaults to the config value (32)")
+                   help="defaults to the config value (transunet 32, "
+                        "vit 8)")
     t.add_argument("--seed", type=int, default=None,
                    help="seed of the initial weights and the augmentation")
     t.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (params stay float32)")
     t.add_argument("--attn-train", default=None,
                    choices=("auto", "xla", "flash", "pallas"),
-                   help="train-path attention: 'xla' (the default config) "
-                        "= composed attention, 'flash' = the K3 attention "
-                        "core with its backward kernel; 'auto' resolves to "
-                        "'xla' off the TPU; 'pallas' (K5) is not ported")
+                   help="train-path attention: 'xla' = composed "
+                        "attention, 'flash' = the K3 attention core with its "
+                        "backward kernel, 'pallas' = the whole attention as "
+                        "K5, whose forward saves qkv and the probabilities "
+                        "for its backward; 'auto' (the vit default) "
+                        "resolves to 'xla' off the TPU")
     t.add_argument("--synthetic", action="store_true",
                    help="synthetic data instead of .npy files")
     t.add_argument("--train-data", default=None)
@@ -179,6 +188,8 @@ def make_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
     p = sub.add_parser("serve", help="HTTP inference with micro-batching")
+    p.add_argument("--model", default="transunet", choices=PORTED,
+                   help="model family of the weights (the ported ones)")
     p.add_argument("--params", default=None,
                    help="flax-layout npz (params/... and batch_stats/...)")
     p.add_argument("--bf16", action="store_true",

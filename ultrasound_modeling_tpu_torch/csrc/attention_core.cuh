@@ -1,6 +1,8 @@
-// Attention core shared by K1 (transformer_block.cu) and K4
-// (window_attention.cu): per (sequence, head), softmax(q*scale . k^T + A) . v
-// on a packed qkv [B*S, 3C] float32 projection.
+// Attention core shared by K1 (transformer_block.cu), K4
+// (window_attention.cu) and K5 (attention_train.cu): per (sequence, head),
+// softmax(q*scale . k^T + A) . v on a packed qkv [B*S, 3C] float32
+// projection.  K5 also stores what its backward consumes: the probabilities
+// P [B, H, S, S] and, when the train dtype is bf16, a rounded copy of qkv.
 //
 // Replaces the per-head score/softmax/PV part of the Pallas kernel bodies
 // _tblock_kernel and _window_attn_kernel (ultrasound_modeling_tpu/ops/
@@ -26,12 +28,18 @@ constexpr int ATT_MAX_S = 160;  // ViT's 160 tokens is the longest user
 constexpr int ATT_MAX_D = 160;  // ViT's 1280 / 8 heads
 
 // PV_BF16: round P and V to bfloat16 before the P.V product (K1's numeric
-// contract, _tblock_kernel:749-752); K4 keeps them float32.
-template <typename TOut, bool PV_BF16>
+// contract, _tblock_kernel:749-752); K4 and K5 keep them float32.
+// p_save (may be null): the normalized float32 P of every (sequence, head,
+// query row) in TSave, [B, H, S, S].  qkv_save (may be null): qkv in TSave,
+// the same [B*S, 3C] layout; each block writes its own head's q, k, v
+// columns, so the grid covers the tensor once.  Each warp already holds its
+// row of P (Pw), so neither store needs shared memory.
+template <typename TOut, bool PV_BF16, typename TSave = float>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_core_kernel(const float* __restrict__ qkv, const float* __restrict__ addmask,
                       TOut* __restrict__ out, int S, int C, int H, int nW,
-                      float scale) {
+                      float scale, TSave* __restrict__ p_save,
+                      TSave* __restrict__ qkv_save) {
   extern __shared__ float smem[];
   const int seq = blockIdx.x, h = blockIdx.y;
   const int d = C / H, ld = d | 1;
@@ -42,20 +50,30 @@ attention_core_kernel(const float* __restrict__ qkv, const float* __restrict__ a
   float* Pw = Vs + S * ld + nwarps * d + warp * S;  // this warp's probabilities
 
   const size_t row3 = 3 * (size_t)C;
-  const float* base = qkv + (size_t)seq * S * row3 + (size_t)h * d;
+  const size_t base_at = (size_t)seq * S * row3 + (size_t)h * d;
+  const float* base = qkv + base_at;
+  TSave* save = qkv_save ? qkv_save + base_at : nullptr;
   for (int e = threadIdx.x; e < S * d; e += blockDim.x) {
     const int j = e / d, c = e - j * d;
     const float* r = base + j * row3 + c;
-    Ks[j * ld + c] = r[C];
-    const float v = r[2 * C];
+    const float k = r[C], v = r[2 * C];
+    Ks[j * ld + c] = k;
     Vs[j * ld + c] = PV_BF16 ? round_bf16(v) : v;
+    if (save) {
+      save[j * row3 + c + C] = from_f32<TSave>(k);
+      save[j * row3 + c + 2 * C] = from_f32<TSave>(v);
+    }
   }
   __syncthreads();
 
   const float* am = addmask ? addmask + ((size_t)(seq % nW) * H + h) * S * S : nullptr;
   constexpr int T = ATT_MAX_S / 32;
   for (int i = warp; i < S; i += nwarps) {
-    for (int c = lane; c < d; c += 32) Qw[c] = base[i * row3 + c] * scale;
+    for (int c = lane; c < d; c += 32) {
+      const float q = base[i * row3 + c];
+      Qw[c] = q * scale;
+      if (save) save[i * row3 + c] = from_f32<TSave>(q);
+    }
     __syncwarp();
     float sc[T];
     float mx = -INFINITY;
@@ -81,12 +99,14 @@ attention_core_kernel(const float* __restrict__ qkv, const float* __restrict__ a
       sum += p;
     }
     sum = warp_sum(sum);
+    TSave* prow = p_save ? p_save + (((size_t)seq * H + h) * S + i) * S : nullptr;
 #pragma unroll
     for (int t = 0; t < T; ++t) {
       const int j = lane + 32 * t;
       if (j < S) {
         const float p = sc[t] / sum;
         Pw[j] = PV_BF16 ? round_bf16(p) : p;
+        if (prow) prow[j] = from_f32<TSave>(p);
       }
     }
     __syncwarp();
@@ -101,20 +121,22 @@ attention_core_kernel(const float* __restrict__ qkv, const float* __restrict__ a
 }
 
 // B sequences of S tokens; addmask (may be null) is [nW, H, S, S] and
-// sequence b uses addmask[b % nW].
-template <typename TOut, bool PV_BF16>
+// sequence b uses addmask[b % nW]; p_save / qkv_save as for the kernel.
+template <typename TOut, bool PV_BF16, typename TSave = float>
 inline int launch_attention_core(const float* qkv, const float* addmask, TOut* out,
                                  int B, int S, int C, int H, int nW, float scale,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, TSave* p_save = nullptr,
+                                 TSave* qkv_save = nullptr) {
   if (H <= 0 || C % H || S > ATT_MAX_S || C / H > ATT_MAX_D || nW <= 0)
     return (int)cudaErrorInvalidValue;
   const int d = C / H, ld = d | 1, nwarps = ATT_THREADS / 32;
   const size_t smem = (size_t)(2 * S * ld + nwarps * (d + S)) * sizeof(float);
-  auto kern = attention_core_kernel<TOut, PV_BF16>;
+  auto kern = attention_core_kernel<TOut, PV_BF16, TSave>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B, H), ATT_THREADS, smem, stream>>>(qkv, addmask, out, S, C, H, nW, scale);
+  kern<<<dim3(B, H), ATT_THREADS, smem, stream>>>(qkv, addmask, out, S, C, H, nW, scale,
+                                                  p_save, qkv_save);
   return (int)cudaGetLastError();
 }
 

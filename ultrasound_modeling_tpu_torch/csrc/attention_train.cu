@@ -1,0 +1,56 @@
+// K5: the train-path attention forward that saves its backward's inputs.
+//
+// Replaces attention_train_fused / _attn_train_fwd_pallas / _attn_train_kernel
+// (ultrasound_modeling_tpu/ops/pallas_kernels.py:446, :311, body :276-308),
+// which the JAX package runs in every Attention of a train step under
+// attn_train_impl='pallas' (models/transunet.py:97-102; the ViT reaches it
+// through the same Block).
+//
+// Decomposition (ops/kernels.py attention_train_fwd sequences them):
+//   GEMM(qkv, +b, f32: tb_linear for bf16, wa_linear for f32)
+//   -> this attention core, which per (sequence, head) takes the scores from
+//      the float32 projection (q*scale in f32), keeps P in f32 through P.V,
+//      and stores P [B, H, S, S] and (bf16 only) the rounded qkv copy in
+//      the train dtype, both in natural layouts
+//   -> GEMM(proj, +b) in the train dtype.
+// Dropped from the TPU kernel, all Mosaic/VMEM artifacts: the (batch tile,
+// head) grid with head-sliced weights, the head-major [H, B*N, 3d] qkv and
+// [G, H, rows, rows] probs layouts (whose relayouts made K5 the measured
+// loser on the TPU, :492-495), and the -1e9 block-diagonal packing.
+//
+// Numerics against the TPU kernel: the same up to the output projection;
+// under bf16 the context is rounded to bf16 before it (the tensor-core
+// GEMM takes bf16 operands) where the TPU kernel fed it unrounded.
+//
+// Bound: at the ViT train shape (b8, S 160, C 1280, 8 heads) a block owns
+// one (sequence, head): 2*2*S*S*d = 16 MFLOP on 206 KB of K/V in shared
+// memory; the projections (2*1280*C*4C = 16.8 GFLOP) dominate and run on
+// the GEMM kernels.  The extra stores are P (S*S per block, 0.8 MB per
+// layer in f32 at the ViT shape) and the bf16 qkv copy.
+
+#include "attention_core.cuh"
+#include "common.cuh"
+
+using um::bf16;
+
+extern "C" {
+
+// ctx[B*S, C] = per (sequence, head) softmax(q*scale . k^T) . v on the f32
+// projection qkv [B*S, 3C]; probs [B, H, S, S] = that softmax; io_bf16
+// selects bf16 for ctx and probs and then also writes qkv_save [B*S, 3C],
+// qkv rounded to bf16 (with float32 outputs qkv_save must be null: the
+// projection is its own copy).
+int at_attention_core(const float* qkv, void* out, void* probs, void* qkv_save,
+                      int io_bf16, int B, int S, int C, int H, float scale,
+                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (io_bf16)
+    return um::launch_attention_core<bf16, false, bf16>(
+        qkv, nullptr, (bf16*)out, B, S, C, H, 1, scale, st, (bf16*)probs,
+        (bf16*)qkv_save);
+  if (qkv_save) return (int)cudaErrorInvalidValue;
+  return um::launch_attention_core<float, false, float>(
+      qkv, nullptr, (float*)out, B, S, C, H, 1, scale, st, (float*)probs, nullptr);
+}
+
+}  // extern "C"

@@ -6,12 +6,14 @@ PyTorch's ``channels_last`` layout, so no copy is made on the way in or out.
 
 Numerics follow the Keras layers the reference uses: LayerNorm eps 1e-3
 (channels only), BatchNorm eps 1e-3 and momentum 0.99 (batch statistics
-in train mode, running statistics in eval), LeakyReLU 0.3, exact GELU.
-Params stay float32; under a bfloat16 compute dtype the convs and matmuls
+in train mode, running statistics in eval), LeakyReLU 0.3 (the ViT stem's
+0.2), exact GELU.  Params stay float32; under a bfloat16 compute dtype the convs and matmuls
 run in bfloat16, while norm statistics and softmaxes are taken in float32.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,16 +33,17 @@ def full_f32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def leaky(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.3) with flax's derivative at 0: ``jax.nn.leaky_relu``
-    is ``where(x >= 0, x, a * x)``, slope 1 at 0, where ``F.leaky_relu``
-    takes slope ``a``.  Exact zeros are common here (the frames are zero
-    outside the brain, and fresh biases are zero).  Both give the same
-    values; without a gradient to take, the single fused
-    ``F.leaky_relu`` kernel runs instead of the three of ``where``."""
+def leaky(x: torch.Tensor, slope: float = LEAKY_ALPHA) -> torch.Tensor:
+    """LeakyReLU(``slope``; Keras' 0.3 by default) with flax's derivative
+    at 0: ``jax.nn.leaky_relu`` is ``where(x >= 0, x, a * x)``, slope 1 at
+    0, where ``F.leaky_relu`` takes slope ``a``.  Exact zeros are common
+    here (the frames are zero outside the brain, and fresh biases are
+    zero).  Both give the same values; without a gradient to take, the
+    single fused ``F.leaky_relu`` kernel runs instead of the three of
+    ``where``."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return torch.where(x >= 0, x, x * LEAKY_ALPHA)
-    return F.leaky_relu(x, LEAKY_ALPHA)
+        return torch.where(x >= 0, x, x * slope)
+    return F.leaky_relu(x, slope)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -71,19 +74,52 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
-class Conv(nn.Module):
-    """Keras ``Conv2D(padding='same')``, stride 1 (the only stride on the
-    TransUNet path)."""
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3,
-                 dilation: int = 1):
+
+def flax_same_pads(size: int, kernel: int, stride: int,
+                   dilation: int = 1) -> Tuple[int, int]:
+    """flax/XLA ``padding='SAME'`` along one axis: the output has
+    ``ceil(size / stride)`` positions and the ``total`` padding splits as
+    ``(total // 2, total - total // 2)`` — asymmetric whenever ``total`` is
+    odd, as for a 3x3 stride-2 conv on an even size (0 low, 1 high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NHWC: ``padding='SAME'`` (Keras' 'same') or
+    ``'VALID'``, any kernel (int or (kh, kw)), stride and dilation.  The
+    stride-1 odd-kernel SAME conv of the TransUNet path pads symmetrically
+    (``conv_nhwc``); any other pads as flax does (``flax_same_pads``)."""
+
+    def __init__(self, cin: int, cout: int, kernel=3, dilation: int = 1,
+                 stride=1, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r} not 'SAME' or 'VALID'")
         self.dilation = dilation
-        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
+        self.stride = _pair(stride)
+        self.padding = padding
+        self.weight = nn.Parameter(torch.zeros(cout, cin, *_pair(kernel)))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return conv_nhwc(x, self.weight, self.bias, self.dilation)
+        kh, kw = self.weight.shape[-2:]
+        if (self.stride == (1, 1) and self.padding == "SAME"
+                and kh == kw and kh % 2):
+            return conv_nhwc(x, self.weight, self.bias, self.dilation)
+        y = x.permute(0, 3, 1, 2)
+        if self.padding == "SAME":
+            (sh, sw), d = self.stride, self.dilation
+            ph = flax_same_pads(y.shape[2], kh, sh, d)
+            pw = flax_same_pads(y.shape[3], kw, sw, d)
+            y = F.pad(y, (*pw, *ph))
+        y = F.conv2d(y, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                     stride=self.stride, dilation=self.dilation)
+        return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose(nn.Module):

@@ -1,7 +1,7 @@
 """Model zoo keyed by config name (PyTorch port of ``models/registry.py``).
 
 Takes the JAX package's ``ModelConfig`` (``ultrasound_modeling_tpu.config``,
-shared: it imports no jax).  Only ``transunet`` is ported so far.
+shared: it imports no jax).  ``transunet`` and ``vit`` are ported so far.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from ultrasound_modeling_tpu.config import ModelConfig
 # the other families and the ROADMAP item that ports each
 _NOT_YET = {
     "resnest_unet": "ROADMAP Queue 1 item 10 (ResNeStUNet)",
-    "vit": "ROADMAP Queue 1 item 10 (models/vit.py)",
     "swin": "ROADMAP Queue 1 item 10 (models/swin.py)",
     "mobileunet": "ROADMAP Queue 1 item 10 (models/mobileunet.py)",
 }
@@ -35,26 +34,33 @@ def _attn_impl(impl: str) -> str:
 def _attn_train_impl(impl: str) -> str:
     """JAX attn_train_impl -> the port's.  'auto' resolves off the TPU (the
     card included) to the composed path, as ``resolve_attn_train_impl``
-    does; 'pallas' (K5, ``attention_train_fused``) is not ported yet."""
+    does; 'flash' is K3, 'pallas' K5."""
     if impl in ("auto", "xla"):
         return "composed"
-    if impl == "flash":
-        return "flash"
-    if impl == "pallas":
-        raise NotImplementedError(
-            "attn_train_impl='pallas' (K5 attention_train_fused) is not "
-            "ported yet: ROADMAP Queue 2")
+    if impl in ("flash", "pallas"):
+        return impl
     raise ValueError(f"unknown attn_train_impl {impl!r}")
 
 
 def build_model(cfg: ModelConfig) -> torch.nn.Module:
     name = cfg.name
+    if name in ("transunet", "vit") and cfg.dropout_rate:
+        raise NotImplementedError(
+            f"dropout_rate={cfg.dropout_rate} is not ported yet (the "
+            f"default configs train without dropout): ROADMAP Queue 1")
+    if name == "vit":
+        from ultrasound_modeling_tpu_torch.models.vit import ViTSegmenter
+        return ViTSegmenter(
+            num_classes=cfg.num_classes, hidden_size=cfg.vit_hidden,
+            num_heads=cfg.vit_heads, num_layers=cfg.vit_layers,
+            grid=tuple(cfg.vit_grid), img_size=tuple(cfg.img_size),
+            mlp_dim=cfg.mlp_dim, in_channels=cfg.in_channels,
+            learned_pos=cfg.vit_learned_pos, conv_stem=cfg.vit_conv_stem,
+            attn_impl=_attn_impl(cfg.attn_impl),
+            attn_train_impl=_attn_train_impl(cfg.attn_train_impl),
+            compute_dtype=_DTYPES[cfg.compute_dtype])
     if name == "transunet":
         from ultrasound_modeling_tpu_torch.models.transunet import TransUNet
-        if cfg.dropout_rate:
-            raise NotImplementedError(
-                f"dropout_rate={cfg.dropout_rate} is not ported yet (the "
-                f"default config trains without dropout): ROADMAP Queue 1")
         return TransUNet(
             num_classes=cfg.num_classes, hidden_size=cfg.hidden_size,
             num_heads=cfg.num_heads, num_layers=cfg.num_layers,

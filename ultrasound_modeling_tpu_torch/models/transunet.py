@@ -17,11 +17,14 @@ does in the JAX package ('xla' / 'pallas'):
   package's 'xla' path.
 
 In train mode ``attn_train_impl`` picks it, as in the JAX package:
-``'composed'`` (the JAX 'xla', autograd through ``mha``) or ``'flash'`` (the
+``'composed'`` (the JAX 'xla', autograd through ``mha``), ``'flash'`` (the
 qkv projection as one matmul, K3 ``ops.kernels.flash_mha`` with its
-backward kernel, the output projection).  ``train_route`` (``'kernel'`` /
-``'plain'``) picks the train kernels K2 and K3 or their plain versions,
-differentiated by autograd.  The BatchNorms train with batch statistics.
+backward kernel, the output projection) or ``'pallas'`` (the whole chain
+as K5 ``ops.kernels.attention_train_fused``, whose forward saves qkv and
+the probabilities for its backward).  ``train_route`` (``'kernel'`` /
+``'plain'``) picks the train kernels K2, K3 and K5 or their plain
+versions, differentiated by autograd.  The BatchNorms train with batch
+statistics.
 
 Left out: ``KSACDecoderBlock``, pipeline parallelism, remat, dropout.
 """
@@ -44,7 +47,7 @@ from ultrasound_modeling_tpu_torch.ops.attention import mha
 
 TRANSFORMER_LN_EPS = 1e-6
 ATTN_IMPLS = ("kernel", "plain", "composed")
-ATTN_TRAIN_IMPLS = ("composed", "flash")
+ATTN_TRAIN_IMPLS = ("composed", "flash", "pallas")
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -73,6 +76,14 @@ class Attention(nn.Module):
 
     def forward(self, x):
         scale = 1.0 / math.sqrt(self.num_heads)
+        if self.training and self.attn_train_impl == "pallas":
+            # K5's biases are float32 holding the compute dtype's values
+            # (the JAX Attention casts every parameter to it)
+            w, b = self._qkv_weights(x.dtype)
+            fn = (kernels.attention_train_fused if self.train_route == "kernel"
+                  else kernels.attention_train_fused_plain)
+            return fn(x, w, b.to(x.dtype).float(), self.out.weight.to(x.dtype),
+                      self.out.bias.to(x.dtype).float(), self.num_heads, scale)
         if self.training and self.attn_train_impl == "flash":
             w, b = self._qkv_weights(x.dtype)
             fn = (kernels.flash_mha if self.train_route == "kernel"
@@ -128,6 +139,23 @@ class Block(nn.Module):
             f.fc1.weight.to(bf), f.fc1.bias, f.fc2.weight.to(bf), f.fc2.bias)
 
 
+def k1_stack(blocks, norm: nn.LayerNorm, x: torch.Tensor, num_heads: int,
+             attn_impl: str) -> torch.Tensor:
+    """The bf16 serving stack: each block through K1 (``attn_impl
+    'kernel'``) or its plain version (``'plain'``), the trailing LayerNorm
+    ``norm`` folded into the last one."""
+    fn = (kernels.transformer_block if attn_impl == "kernel"
+          else kernels.transformer_block_plain)
+    scale = 1.0 / math.sqrt(num_heads)
+    x = x.contiguous()
+    last = len(blocks) - 1
+    for i, blk in enumerate(blocks):
+        fin = (norm.weight, norm.bias) if i == last else None
+        x = fn(x, blk.k1_weights(), num_heads, scale, TRANSFORMER_LN_EPS,
+               final_ln=fin)
+    return x
+
+
 class Encoder(nn.Module):
     """``num_layers`` blocks + the final LN (``encoder_norm``)."""
 
@@ -145,17 +173,8 @@ class Encoder(nn.Module):
         # the K1 stack is an inference kernel: bf16 eval only, as in JAX
         if (not self.training and self.attn_impl != "composed"
                 and x.dtype == torch.bfloat16):
-            fn = (kernels.transformer_block if self.attn_impl == "kernel"
-                  else kernels.transformer_block_plain)
-            scale = 1.0 / math.sqrt(self.num_heads)
-            x = x.contiguous()
-            last = len(self.blocks) - 1
-            for i, blk in enumerate(self.blocks):
-                fin = ((self.encoder_norm.weight, self.encoder_norm.bias)
-                       if i == last else None)
-                x = fn(x, blk.k1_weights(), self.num_heads, scale,
-                       TRANSFORMER_LN_EPS, final_ln=fin)
-            return x
+            return k1_stack(self.blocks, self.encoder_norm, x, self.num_heads,
+                            self.attn_impl)
         for blk in self.blocks:
             x = blk(x)
         return self.encoder_norm(x)
@@ -220,32 +239,8 @@ class DecoderCup(nn.Module):
         return torch.softmax(self.head(x).float(), dim=-1)
 
 
-class TransUNet(nn.Module):
-    """Input NHWC ``[B, 256, 80, 10]`` float32 -> probabilities
-    ``[B, 256, 80, num_classes]`` float32.  Params stay float32; activations
-    run in ``compute_dtype``."""
-
-    def __init__(self, num_classes: int = 3, hidden_size: int = 512,
-                 num_heads: int = 4, num_layers: int = 8, mlp_dim: int = 2048,
-                 grid: Tuple[int, int] = (16, 5), radix: int = 3,
-                 kpaths: int = 3, ksize: int = 3, in_channels: int = 10,
-                 attn_impl: str = "kernel", attn_train_impl: str = "composed",
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        if attn_impl not in ATTN_IMPLS:
-            raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one "
-                             f"of {ATTN_IMPLS}")
-        if attn_train_impl not in ATTN_TRAIN_IMPLS:
-            raise ValueError(f"unknown attn_train_impl {attn_train_impl!r}; "
-                             f"expected one of {ATTN_TRAIN_IMPLS}")
-        self.grid = tuple(grid)
-        self.hidden_size = hidden_size
-        self.compute_dtype = compute_dtype
-        self.hybrid = ResNeStEncoder(in_channels, ksize, radix, kpaths)
-        self.patch_embeddings = Conv(512, hidden_size, 1)
-        self.encoder = Encoder(hidden_size, num_heads, num_layers, mlp_dim,
-                               attn_impl, attn_train_impl)
-        self.decoder = DecoderCup(hidden_size, num_classes, self.grid)
+class Segmenter(nn.Module):
+    """Route switches shared by the ported families."""
 
     def set_attn_impl(self, attn_impl: str) -> None:
         if attn_impl not in ATTN_IMPLS:
@@ -255,13 +250,48 @@ class TransUNet(nn.Module):
                 m.attn_impl = attn_impl
 
     def set_train_route(self, route: str) -> None:
-        """``'kernel'``: train mode runs K2 (and K3 under 'flash');
-        ``'plain'``: their plain versions, differentiated by autograd."""
+        """``'kernel'``: train mode runs the train kernels (K2, K3 under
+        'flash', K5 under 'pallas'); ``'plain'``: their plain versions,
+        differentiated by autograd."""
         if route not in TRAIN_ROUTES:
             raise ValueError(f"unknown train route {route!r}")
         for m in self.modules():
             if hasattr(m, "train_route"):
                 m.train_route = route
+
+
+def check_impls(attn_impl: str, attn_train_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one "
+                         f"of {ATTN_IMPLS}")
+    if attn_train_impl not in ATTN_TRAIN_IMPLS:
+        raise ValueError(f"unknown attn_train_impl {attn_train_impl!r}; "
+                         f"expected one of {ATTN_TRAIN_IMPLS}")
+
+
+class TransUNet(Segmenter):
+    """Input NHWC ``[B, 256, 80, 10]`` float32 -> probabilities
+    ``[B, 256, 80, num_classes]`` float32.  Params stay float32; activations
+    run in ``compute_dtype``."""
+
+    family = "transunet"   # the weight bridge's name for this tree
+
+    def __init__(self, num_classes: int = 3, hidden_size: int = 512,
+                 num_heads: int = 4, num_layers: int = 8, mlp_dim: int = 2048,
+                 grid: Tuple[int, int] = (16, 5), radix: int = 3,
+                 kpaths: int = 3, ksize: int = 3, in_channels: int = 10,
+                 attn_impl: str = "kernel", attn_train_impl: str = "composed",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        check_impls(attn_impl, attn_train_impl)
+        self.grid = tuple(grid)
+        self.hidden_size = hidden_size
+        self.compute_dtype = compute_dtype
+        self.hybrid = ResNeStEncoder(in_channels, ksize, radix, kpaths)
+        self.patch_embeddings = Conv(512, hidden_size, 1)
+        self.encoder = Encoder(hidden_size, num_heads, num_layers, mlp_dim,
+                               attn_impl, attn_train_impl)
+        self.decoder = DecoderCup(hidden_size, num_classes, self.grid)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats, features = self.hybrid(x.to(self.compute_dtype))

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels of the serving and train paths, their plain
 PyTorch versions, and launch counters.
 
-Four Pallas kernels of the JAX package run on the TransUNet paths ported
-so far (sources in ``csrc/``, notes at the top of each file); every
-``pallas_kernels.py`` line below is in ``ultrasound_modeling_tpu/ops/``:
+Every Pallas kernel of the JAX package has its counterpart here (sources
+in ``csrc/``, notes at the top of each file); every ``pallas_kernels.py``
+line below is in ``ultrasound_modeling_tpu/ops/``:
 
 * **K1** ``transformer_block`` — replaces ``transformer_block_fused``
   (``pallas_kernels.py:781``), the bf16 pre-LN block that bf16 serving
@@ -27,13 +27,24 @@ so far (sources in ``csrc/``, notes at the top of each file); every
   ``flash_attention_fwd`` (context and per-row LSE) and backward
   ``flash_attention_bwd`` (packed dqkv) (``csrc/flash_attention.cu``),
   joined by ``FlashMHA``.
+* **K5** ``attention_train_fused`` — replaces ``attention_train_fused``
+  (``pallas_kernels.py:446``; ``pl.pallas_call`` in
+  ``_attn_train_fwd_pallas`` ``:338``), the train attention of
+  ``--attn-train pallas``: forward ``attention_train_fwd`` = ``linear`` +
+  ``at_attention_core`` (which also stores P and the qkv copy the backward
+  reads, ``csrc/attention_train.cu``) + ``linear``; the backward is PyTorch
+  in ``AttentionTrainFused``, as it is XLA in the JAX package (``:379-430``).
+* **K6** ``label2vec_smooth`` — replaces ``fused_label2vec_smooth``
+  (``pallas_kernels.py:1157``, ``pl.pallas_call`` ``:1173``), one
+  elementwise pass (``csrc/label2vec.cu``); standalone, as in the JAX
+  package, where no path calls it.
 
 Every wrapper checks device, dtype, shape and contiguity and allocates its
 outputs.  For CUDA tensors it launches its kernel (or raises); for CPU
 tensors it calls the plain version, which is the same function written
 with PyTorch ops — the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
-``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4
+``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4/K5
 call; ``LAYOUT_COPIES`` counts the inputs K2 and K3 had to copy into the
 contiguous layout their kernels read.
 
@@ -84,15 +95,20 @@ SOURCES = {
         "flash_attention_fwd": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
         "flash_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
                                 _P]},
+    "attention_train.cu": {
+        "at_attention_core": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    "label2vec.cu": {
+        "label2vec_smooth": [_P, _P, _I, _I, _F, _F, _P]},
 }
 
 MAX_SEQ = 160    # attention_core / flash_attention limits (csrc/*.cu)
 MAX_HEAD_DIM = 160
 
-# launches per CUDA entry point (csrc/*.cu), plus one per call of the two
-# ported TPU kernels, K1 and K4, that run a sequence of entry points (K2's
-# and K3's four functions are one entry point each)
+# launches per CUDA entry point (csrc/*.cu), plus one per call of the three
+# ported TPU kernels, K1, K4 and K5, that run a sequence of entry points
+# (K2's, K3's and K6's functions are one entry point each)
 LAUNCHES = {"transformer_block": 0, "window_attention": 0,
+            "attention_train": 0,
             **{fn: 0 for fns in SOURCES.values() for fn in fns}}
 # inputs that K2 / K3 received in a layout their kernels do not read and
 # copied (a non-contiguous conv output or incoming gradient)
@@ -775,3 +791,211 @@ def flash_mha_plain(qkv: torch.Tensor, num_heads: int,
     p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1).to(dt)
     ctx = (p.float() @ v).to(dt)
     return ctx.transpose(1, 2).reshape(b, n, c3 // 3)
+
+
+# ---------------------------------------------------------------------------
+# K5: train attention that saves its backward's inputs
+# ---------------------------------------------------------------------------
+
+def _check_attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads):
+    _check(x2, "x", (_F32, _BF16))
+    if x2.dim() != 2:
+        raise ValueError(f"x must be [B*seq, C], got {tuple(x2.shape)}")
+    c = x2.shape[1]
+    _check(qkv_w, "qkv_w", (x2.dtype,), (3 * c, c))
+    _check(qkv_b, "qkv_b", (_F32,), (3 * c,))
+    _check(proj_w, "proj_w", (x2.dtype,), (c, c))
+    _check(proj_b, "proj_b", (_F32,), (c,))
+    _check_attention_shape(x2.shape[0], seq, 3 * c, num_heads, None)
+
+
+def attention_train_core_plain(qkv: torch.Tensor, seq: int, num_heads: int,
+                               scale: float, dtype: torch.dtype):
+    q, k, v = _split_heads(qkv, seq, num_heads)
+    p = torch.softmax((q * scale) @ k.transpose(-1, -2), dim=-1)
+    ctx = (p @ v).transpose(1, 2).reshape(qkv.shape[0], -1)
+    return ctx.to(dtype), qkv.to(dtype), p.to(dtype)
+
+
+def attention_train_core(qkv: torch.Tensor, seq: int, num_heads: int,
+                         scale: float, dtype: torch.dtype
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's attention core on the float32 projection ``qkv [B*seq, 3C]``:
+    per (sequence, head) ``P = softmax(q*scale . k^T)`` in float32 and the
+    context ``P.v``.  Returns ``(ctx [B*seq, C], qkv [B*seq, 3C], P [B,
+    heads, seq, seq])`` in ``dtype`` (float32 or bfloat16); under float32
+    the returned qkv is the input itself."""
+    _check(qkv, "qkv", (_F32,))
+    if dtype not in (_F32, _BF16):
+        raise TypeError(f"dtype {dtype} not float32/bfloat16")
+    b, c, _ = _check_attention_shape(qkv.shape[0], seq, qkv.shape[1],
+                                     num_heads, None)
+    if not _on_cuda(qkv):
+        return attention_train_core_plain(qkv, seq, num_heads, scale, dtype)
+    rows, dev = qkv.shape[0], qkv.device
+    ctx = torch.empty((rows, c), dtype=dtype, device=dev)
+    p = torch.empty((b, num_heads, seq, seq), dtype=dtype, device=dev)
+    saved = qkv if dtype == _F32 else torch.empty((rows, 3 * c), dtype=dtype,
+                                                  device=dev)
+    _launch(build().at_attention_core, _ptr(qkv), _ptr(ctx), _ptr(p),
+            _ptr(None if dtype == _F32 else saved), int(dtype == _BF16), b,
+            seq, c, num_heads, float(scale), _stream())
+    return ctx, saved, p
+
+
+def _attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads, scale,
+                     lin, core):
+    dt = x2.dtype
+    ctx, qkv, p = core(lin(x2, qkv_w, qkv_b), seq, num_heads, scale, dt)
+    return lin(ctx, proj_w, proj_b, out_dtype=dt), qkv, p
+
+
+def attention_train_fwd_plain(x2, qkv_w, qkv_b, proj_w, proj_b, seq,
+                              num_heads, scale):
+    return _attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads,
+                            scale, linear_plain, attention_train_core_plain)
+
+
+def attention_train_fwd(x2: torch.Tensor, qkv_w: torch.Tensor,
+                        qkv_b: torch.Tensor, proj_w: torch.Tensor,
+                        proj_b: torch.Tensor, seq: int, num_heads: int,
+                        scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 forward on ``x2 [B*seq, C]`` (float32 or bfloat16) with
+    ``qkv_w [3C, C]`` and ``proj_w [C, C]`` in x's dtype (``Linear``
+    layout), float32 biases: per (sequence, head) ``softmax(q*scale . k^T)``
+    from the float32 projection, ``P.v`` with P in float32, then the output
+    projection.  Returns ``(out [B*seq, C], qkv [B*seq, 3C], P [B, heads,
+    seq, seq])``, all in x's dtype; qkv and P are what the backward reads.
+    Under bfloat16 the context is rounded to bf16 before the output
+    projection (the TPU kernel fed it unrounded)."""
+    _check_attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads)
+    if not _on_cuda(x2, qkv_w, qkv_b, proj_w, proj_b):
+        return attention_train_fwd_plain(x2, qkv_w, qkv_b, proj_w, proj_b,
+                                         seq, num_heads, scale)
+    LAUNCHES["attention_train"] += 1
+    return _attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads,
+                            scale, linear, attention_train_core)
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 product of the exact upcast operands (float32 sums)."""
+    return a.float() @ b.float()
+
+
+def attention_train_bwd(x2, qkv, p, qkv_w, proj_w, g2, seq, num_heads, scale):
+    """K5's backward from the saved ``x2``, ``qkv``, ``P`` and the weights
+    (``_attn_train_bwd``, ``pallas_kernels.py:379-430``): matmuls in x's
+    dtype (float32 sums), the softmax backward and the q/k products in
+    float32.  Returns ``(dx, dqkv_w, dqkv_b, dproj_w, dproj_b)`` with
+    dx and the weight gradients in x's dtype, the bias gradients float32."""
+    dt = x2.dtype
+    rows, c = x2.shape
+    b, d = rows // seq, c // num_heads
+    q, k, v = qkv.view(b, seq, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    g = g2.to(dt)
+    o = (p @ v).transpose(1, 2).reshape(rows, c)            # [rows, C], dt
+    d_proj_w = g.t() @ o
+    d_proj_b = g.float().sum(0)
+    do = (g @ proj_w).view(b, seq, num_heads, d).transpose(1, 2)
+    dp = _mm32(do, v.transpose(-1, -2))                     # [b, h, S, S]
+    dv = p.transpose(-1, -2) @ do
+    pf = p.float()
+    ds = (pf * (dp - (dp * pf).sum(-1, keepdim=True))).to(dt)
+    dq = (_mm32(ds, k) * scale).to(dt)
+    dk = (_mm32(ds.transpose(-1, -2), q) * scale).to(dt)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, 3 * c)
+    d_qkv_w = dqkv.t() @ x2
+    d_qkv_b = dqkv.float().sum(0)
+    dx = dqkv @ qkv_w
+    return dx, d_qkv_w, d_qkv_b, d_proj_w, d_proj_b
+
+
+class AttentionTrainFused(torch.autograd.Function):
+    """K5 with its saving backward: the forward (``fwd``: the kernel's
+    wrapper or its plain version) keeps qkv and P, the backward reads them
+    and recomputes nothing (``_attn_train_core``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads, scale,
+                fwd):
+        out, qkv, p = fwd(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads,
+                          scale)
+        ctx.attn = (seq, num_heads, scale)
+        ctx.save_for_backward(x2, qkv, p, qkv_w, proj_w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, qkv, p, qkv_w, proj_w = ctx.saved_tensors
+        grads = attention_train_bwd(x2, qkv, p, qkv_w, proj_w, g, *ctx.attn)
+        return (*grads, None, None, None, None)
+
+
+def _attention_train_fused(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, scale,
+                           fwd):
+    b, n, c = x.shape
+    out = AttentionTrainFused.apply(x.contiguous().view(b * n, c), qkv_w,
+                                    qkv_b, proj_w, proj_b, n, num_heads,
+                                    float(scale), fwd)
+    return out.view(b, n, c)
+
+
+def attention_train_fused(x: torch.Tensor, qkv_w: torch.Tensor,
+                          qkv_b: torch.Tensor, proj_w: torch.Tensor,
+                          proj_b: torch.Tensor, num_heads: int,
+                          scale: float) -> torch.Tensor:
+    """Differentiable K5 (``pallas_kernels.attention_train_fused``): ``x
+    [B, N, C]`` -> ``[B, N, C]`` in x's dtype, gradients to x and the four
+    projections; weights in ``Linear`` layout (``qkv_w [3C, C]``, ``proj_w
+    [C, C]``) in x's dtype, biases float32."""
+    return _attention_train_fused(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                  scale, attention_train_fwd)
+
+
+def attention_train_fused_plain(x: torch.Tensor, qkv_w: torch.Tensor,
+                                qkv_b: torch.Tensor, proj_w: torch.Tensor,
+                                proj_b: torch.Tensor, num_heads: int,
+                                scale: float) -> torch.Tensor:
+    """The plain route of :func:`attention_train_fused`: the forward's
+    plain version under the same backward.  The backward is PyTorch on
+    both routes (XLA in the JAX package), and under bfloat16 it rounds
+    where ``_attn_train_bwd`` rounds; autograd through the plain forward
+    would round elsewhere (tests/test_torch_attn_train.py holds both
+    against JAX)."""
+    return _attention_train_fused(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                  scale, attention_train_fwd_plain)
+
+
+# ---------------------------------------------------------------------------
+# K6: label -> smoothed 3-class vector
+# ---------------------------------------------------------------------------
+
+def label2vec_smooth_plain(label: torch.Tensor,
+                           smoothing: float = 0.0) -> torch.Tensor:
+    c2 = torch.clamp(torch.where(label >= 1.05, label - 1.0, 0.0), max=1.0)
+    c1 = torch.where(label > 0.95, 1.0 - c2, 0.0)
+    c0 = torch.where(label <= 0.95, 1.0, 0.0)
+    y = torch.stack([c0, c1, c2], dim=-1)
+    if smoothing:
+        y = y * (1.0 - smoothing) + smoothing / 3.0
+    return y
+
+
+def label2vec_smooth(label: torch.Tensor, smoothing: float = 0.0
+                     ) -> torch.Tensor:
+    """K6: float32 soft labels ``[...]`` -> ``[..., 3]`` float32
+    (``data/labels.label2vec`` with 3 classes), then ``y * (1 - s) + s/3``
+    when ``smoothing`` is not 0."""
+    _check(label, "label", (_F32,))
+    if not _on_cuda(label):
+        return label2vec_smooth_plain(label, smoothing)
+    n = label.numel()
+    if not 0 < n < 2 ** 31 // 3:
+        raise ValueError(f"label2vec_smooth takes 1 to {2 ** 31 // 3 - 1} "
+                         f"labels, got {n}")
+    out = torch.empty((*label.shape, 3), dtype=_F32, device=label.device)
+    _launch(build().label2vec_smooth, _ptr(label), _ptr(out), n,
+            int(bool(smoothing)), float(1.0 - smoothing),
+            float(smoothing / 3.0), _stream())
+    return out

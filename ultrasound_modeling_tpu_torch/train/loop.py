@@ -12,8 +12,11 @@ drivers' semantics:
 * scalars go through the JAX package's ``utils/logging.MetricLogger``
   (stdlib + numpy, shared as it is).
 
-Left out (ROADMAP Queue 1): meshes (data, tensor and pipeline parallel),
-``scan_epochs``, out-of-core datasets, checkpoint and resume, image panels.
+The loss adds the L2 kernel penalty where the config sets one (the ViT).
+Left out (ROADMAP Queue 1): decoupled weight decay and the bf16 Adam first
+moment (a config asking for either raises), meshes (data, tensor and
+pipeline parallel), ``scan_epochs``, out-of-core datasets, checkpoint and
+resume, image panels.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ class Trainer:
         self.dataset = dataset
         self.device = torch.device(device)
         tc = cfg.train
+        if tc.weight_decay or tc.adam_mu_dtype is not None:
+            raise NotImplementedError(
+                f"weight_decay={tc.weight_decay} / adam_mu_dtype="
+                f"{tc.adam_mu_dtype!r} are not ported yet (every ported "
+                f"family trains with 0 / None): ROADMAP Queue 1 item 7")
         self.model = build_model(cfg.model)
         self.logger = logger or MetricLogger()
         self.loss_fn = losses.get_loss(tc.loss)
@@ -52,7 +60,8 @@ class Trainer:
         self.plateau_scale = 1.0
         self.train_step = step_mod.make_train_step(
             self.model, self.loss_fn, num_classes=cfg.model.num_classes,
-            augment=cfg.data.augment, flip=cfg.data.aug_flip)
+            augment=cfg.data.augment, flip=cfg.data.aug_flip,
+            l2_scale=tc.l2_regularization)
         self.eval_step = step_mod.make_eval_step(
             self.model, self.loss_fn, num_classes=cfg.model.num_classes)
         self.iteration = 0

@@ -3,8 +3,9 @@
 The JAX package compiles one XLA program per step; here the step runs
 eagerly, in the same order: augment -> label2vec -> forward in train mode
 (the BatchNorms take batch statistics and update their running statistics
-in place as the forward passes them) -> loss -> backward -> global-norm clip
--> Adam -> ``p -= lr * update``.  A CUDA graph of the step is later work.
+in place as the forward passes them) -> loss (+ the L2 kernel penalty)
+-> backward -> global-norm clip -> Adam -> ``p -= lr * update``.  A CUDA
+graph of the step is later work.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ultrasound_modeling_tpu_torch.data import augment as aug_mod
 from ultrasound_modeling_tpu_torch.data import labels as labels_mod
+from ultrasound_modeling_tpu_torch.train import losses as losses_mod
 from ultrasound_modeling_tpu_torch.train import metrics as metrics_mod
 from ultrasound_modeling_tpu_torch.train.optim import Adam
 from ultrasound_modeling_tpu_torch.utils.checkpoint import (
@@ -38,8 +40,9 @@ class TrainState:
         """Seeded initial weights (``random_flax_variables``: He-normal
         kernels, through the weight bridge) on ``device``; the generator
         lives on the same device, so augmentation never leaves it."""
-        model.load_state_dict(from_flax(random_flax_variables(model, seed)),
-                              strict=True)
+        model.load_state_dict(
+            from_flax(random_flax_variables(model, seed), model.family),
+            strict=True)
         model.to(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         return cls(model, Adam(model.parameters(), clip_norm), 0, gen)
@@ -47,9 +50,12 @@ class TrainState:
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     num_classes: int = 3, augment: bool = True,
-                    flip: bool = False):
+                    flip: bool = False, l2_scale: float = 0.0):
     """``(state, x, y_scalar, lr) -> (loss, probs)``, updating ``state`` in
-    place; ``y_scalar`` is the raw label image ``[B, H, W]``."""
+    place; ``y_scalar`` is the raw label image ``[B, H, W]``.  A non-zero
+    ``l2_scale`` adds ``losses.l2_regularization`` of the model's kernels
+    to the loss (the ViT's 1e-5)."""
+    kernels = losses_mod.l2_kernels(model) if l2_scale else []
 
     def step_fn(state: TrainState, x: torch.Tensor, y_scalar: torch.Tensor,
                 lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,6 +65,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
         y = labels_mod.label2vec(y_scalar, num_classes)
         probs = model(x).float()
         loss = loss_fn(y, probs)
+        if l2_scale:
+            loss = loss + losses_mod.l2_regularization(kernels, l2_scale)
         state.opt.zero_grad()
         loss.backward()
         state.opt.step(lr)

@@ -16,7 +16,10 @@ mechanical.  Per leaf:
 * conv ``kernel`` HWIO            -> ``weight`` OIHW;
 * ``ConvTranspose`` ``kernel``    -> ``weight`` ``[in, out, kh, kw]``, flipped
   on both spatial axes (flax applies the kernel unflipped; torch's
-  ``conv_transpose2d`` is the true transpose — see models/common.py);
+  ``conv_transpose2d`` is the true transpose — see models/common.py).
+  Which modules are transposed depends on the family (``family``
+  argument): the TransUNet's ``up`` and ``head``; none in the ViT, whose
+  ``head`` is a plain 3x3 conv;
 * Dense ``kernel`` ``[in, out]``  -> ``weight`` ``[out, in]``; the attention's
   ``{query,key,value,out}_kernel`` / ``_bias`` become the ``weight`` / ``bias``
   of the ``query`` / ``key`` / ``value`` / ``out`` linears;
@@ -39,14 +42,23 @@ from typing import Dict
 import numpy as np
 import torch
 
-# flax module names that are ConvTranspose layers on the TransUNet path
-# (models/transunet.py DecoderBlock.up, DecoderCup.head).
-CONV_TRANSPOSE = frozenset({"up", "head"})
+# flax module names that are ConvTranspose layers, per family
+# (models/transunet.py DecoderBlock.up, DecoderCup.head; the ViT has none).
+CONV_TRANSPOSE = {"transunet": frozenset({"up", "head"}),
+                  "vit": frozenset()}
 STACKED_PREFIX = "encoder/blocks/block/"
 _ATTN_LEAF = re.compile(r"^(query|key|value|out)_(kernel|bias)$")
+_ATTN_PROJ = ("query", "key", "value", "out")
 
 
-def _leaf_from_flax(parts, a: np.ndarray):
+def _transposed(family: str) -> frozenset:
+    if family not in CONV_TRANSPOSE:
+        raise ValueError(f"unknown model family {family!r}; the bridge knows "
+                         f"{sorted(CONV_TRANSPOSE)}")
+    return CONV_TRANSPOSE[family]
+
+
+def _leaf_from_flax(parts, a: np.ndarray, transposed: frozenset):
     """(torch path parts, torch array) for one flax leaf."""
     name = parts[-1]
     m = _ATTN_LEAF.match(name)
@@ -56,7 +68,7 @@ def _leaf_from_flax(parts, a: np.ndarray):
             return parts[:-1] + [proj, "weight"], a.T
         return parts[:-1] + [proj, "bias"], a
     if name == "kernel":
-        if len(parts) >= 2 and parts[-2] in CONV_TRANSPOSE:
+        if len(parts) >= 2 and parts[-2] in transposed:
             return parts[:-1] + ["weight"], a[::-1, ::-1].transpose(2, 3, 0, 1)
         if a.ndim == 4:
             return parts[:-1] + ["weight"], a.transpose(3, 2, 0, 1)
@@ -68,29 +80,39 @@ def _leaf_from_flax(parts, a: np.ndarray):
     return parts, a
 
 
-def _leaf_to_flax(parts, a: np.ndarray):
-    """Inverse of :func:`_leaf_from_flax` on one torch leaf."""
+def _attn_proj(parts) -> bool:
+    return len(parts) >= 3 and parts[-3] == "attn" and parts[-2] in _ATTN_PROJ
+
+
+def flax_path(parts, ndim: int):
+    """The flax path parts of the torch leaf ``parts`` (its ``state_dict``
+    key split on '.') holding an array of ``ndim`` dimensions."""
     name = parts[-1]
-    if len(parts) >= 3 and parts[-3] == "attn" and parts[-2] in (
-            "query", "key", "value", "out"):
-        proj = parts[-2]
-        if name == "weight":
-            return parts[:-2] + [f"{proj}_kernel"], a.T
-        return parts[:-2] + [f"{proj}_bias"], a
+    if _attn_proj(parts):
+        kind = "kernel" if name == "weight" else "bias"
+        return parts[:-2] + [f"{parts[-2]}_{kind}"]
     if name == "weight":
-        if len(parts) >= 2 and parts[-2] in CONV_TRANSPOSE:
-            return parts[:-1] + ["kernel"], a.transpose(2, 3, 0, 1)[::-1, ::-1]
-        if a.ndim == 4:
-            return parts[:-1] + ["kernel"], a.transpose(2, 3, 1, 0)
-        if a.ndim == 2:
-            return parts[:-1] + ["kernel"], a.T
-        return parts[:-1] + ["scale"], a
-    return parts, a
+        return parts[:-1] + ["kernel" if ndim in (2, 4) else "scale"]
+    return parts
 
 
-def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """flax-layout ``{'params/a/b': array, 'batch_stats/...': array}`` ->
-    torch ``state_dict`` (float32 CPU tensors)."""
+def _leaf_to_flax(parts, a: np.ndarray, transposed: frozenset):
+    """Inverse of :func:`_leaf_from_flax` on one torch leaf."""
+    fparts = flax_path(parts, a.ndim)
+    if _attn_proj(parts):
+        return fparts, a.T if parts[-1] == "weight" else a
+    if fparts[-1] == "kernel":
+        if parts[-2] in transposed:
+            return fparts, a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return fparts, a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+    return fparts, a
+
+
+def from_flax(flat: Dict[str, np.ndarray],
+              family: str = "transunet") -> Dict[str, torch.Tensor]:
+    """flax-layout ``{'params/a/b': array, 'batch_stats/...': array}`` of
+    model ``family`` -> torch ``state_dict`` (float32 CPU tensors)."""
+    transposed = _transposed(family)
     out: Dict[str, torch.Tensor] = {}
 
     def put(parts, a):
@@ -111,15 +133,17 @@ def from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             rest = path[len(STACKED_PREFIX):].split("/")
             for i in range(a.shape[0]):
                 put(*_leaf_from_flax(["encoder", "blocks", str(i)] + rest,
-                                     a[i]))
+                                     a[i], transposed))
             continue
-        put(*_leaf_from_flax(path.split("/"), a))
+        put(*_leaf_from_flax(path.split("/"), a, transposed))
     return out
 
 
-def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """torch ``state_dict`` -> flax-layout flat dict (inverse of
-    :func:`from_flax`)."""
+def to_flax(state_dict: Dict[str, torch.Tensor],
+            family: str = "transunet") -> Dict[str, np.ndarray]:
+    """torch ``state_dict`` of model ``family`` -> flax-layout flat dict
+    (inverse of :func:`from_flax`)."""
+    transposed = _transposed(family)
     out: Dict[str, np.ndarray] = {}
     stacked: Dict[str, Dict[int, np.ndarray]] = {}
     for key, t in state_dict.items():
@@ -131,10 +155,10 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             continue
         if parts[:2] == ["encoder", "blocks"]:
             layer = int(parts[2])
-            fparts, fa = _leaf_to_flax(parts[3:], a)
+            fparts, fa = _leaf_to_flax(parts[3:], a, transposed)
             stacked.setdefault("/".join(fparts), {})[layer] = fa
             continue
-        fparts, fa = _leaf_to_flax(parts, a)
+        fparts, fa = _leaf_to_flax(parts, a, transposed)
         out["params/" + "/".join(fparts)] = np.ascontiguousarray(fa)
     for rest, layers in stacked.items():
         out["params/" + STACKED_PREFIX + rest] = np.stack(
@@ -142,16 +166,19 @@ def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
-    """Read a flax-layout npz (``params/...`` + ``batch_stats/...``) into a
-    torch ``state_dict``."""
+def load_params_npz(path: str,
+                    family: str = "transunet") -> Dict[str, torch.Tensor]:
+    """Read a flax-layout npz (``params/...`` + ``batch_stats/...``) of
+    model ``family`` into a torch ``state_dict``."""
     with np.load(path) as archive:
-        return from_flax({k: archive[k] for k in archive.files})
+        return from_flax({k: archive[k] for k in archive.files}, family)
 
 
-def save_params_npz(state_dict: Dict[str, torch.Tensor], path: str) -> None:
-    """Write a torch ``state_dict`` as a flax-layout npz."""
-    np.savez(path, **to_flax(state_dict))
+def save_params_npz(state_dict: Dict[str, torch.Tensor], path: str,
+                    family: str = "transunet") -> None:
+    """Write a torch ``state_dict`` of model ``family`` as a flax-layout
+    npz."""
+    np.savez(path, **to_flax(state_dict, family))
 
 
 QK_DAMP = 0.05
@@ -170,7 +197,7 @@ def random_flax_variables(model: torch.nn.Module,
     kernel tests do)."""
     rng = np.random.default_rng(seed)
     out = {}
-    for key, a in sorted(to_flax(model.state_dict()).items()):
+    for key, a in sorted(to_flax(model.state_dict(), model.family).items()):
         name = key.rsplit("/", 1)[-1]
         shape = a.shape
         if key.startswith("batch_stats/"):
