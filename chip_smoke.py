@@ -9,23 +9,35 @@ CUDA toolkit:
 Phases (each checks its results; any failure exits non-zero):
 
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
+   for each function of the attention kernels redesigned for the tensor
+   cores (the forward core and both passes of K3's backward) print ptxas's
+   registers, spills and shared memory and the count of HMMA / HGMMA
+   instructions in its SASS (``cuobjdump -sass``), which must not be 0;
 2. hold every CUDA kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with medians of kernel and plain
-   times: K1 one layer at the TransUNet shape (b64, S 80, C 512) and the
-   ViT shape (b64, S 160, C 1280, 8 heads), each with and without the
-   folded final LayerNorm; K4 at the TransUNet and ViT f32 shapes and a
-   Swin shape; K2 (forward and backward, f32 and bf16, LeakyReLU folded,
-   at the stage-1 and stage-4 branch2 and the stage-1 branch1 shapes of
-   batch 32); K3 (forward and backward, f32 and bf16, b32 x 80 tokens, C
-   512); K5's forward (out, saved qkv and P; f32 and bf16) at the ViT (b8,
-   N 160, C 1280) and TransUNet (b32, N 80, C 512) train shapes; K6 on
-   [32, 256, 80] labels;
+   times, the kernel's bound (the larger of its bytes over 3.35 TB/s and
+   its operations over the peak of their type: 989 TFLOP/s bf16, 165 for
+   f32-contract products (3xTF32), 67 for other f32 work) and, where one
+   PyTorch call computes the same function, that call's time (SDPA for the
+   attention cores and K3, SDPA plus autograd for K3's backward,
+   ``F.multi_head_attention_forward`` for K4, ``F.linear`` and
+   ``F.layer_norm``; the port never calls them): K1 one layer at the
+   TransUNet shape (b64, S 80, C 512) and the ViT shape (b64, S 160, C
+   1280, 8 heads), each with and without the folded final LayerNorm; K1's
+   and K4's attention cores at both shapes; K4 at the TransUNet and ViT f32
+   shapes and a Swin shape; K2 (forward and backward, f32 and bf16,
+   LeakyReLU folded, at the stage-1 and stage-4 branch2 and the stage-1
+   branch1 shapes of batch 32); K3 (forward and backward, f32 and bf16) at
+   the TransUNet (b32, N 80, C 512) and ViT (b8, N 160, C 1280) train
+   shapes; K5's forward (out, saved qkv and P; f32 and bf16) at the ViT
+   (b8) and TransUNet (b32) train shapes and its core at b8; K6 on [32,
+   256, 80] labels;
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
    TransUNet, 3b the ViT, batch 64;
 4. the serving main paths: ``serve --model {transunet,vit}`` as a user
-   starts it (npz -> bridge -> model -> the shared ``InferenceServer``),
+   starts it (npz -> bridge -> model -> the port's ``InferenceServer``),
    f32 and bf16, answering concurrent ``/predict`` requests; the launch
    counters are zeroed just before each and read just after, and K1's and
    K4's kernels must have launched;
@@ -49,7 +61,9 @@ Phases (each checks its results; any failure exits non-zero):
    smoothing.
 
 The line before the last is a JSON summary of the kernels (launches summed
-over the main paths above); the last line is ``{"ok": true, "device":
+over the main paths above; times, bound and library time at each kernel's
+first, main-path shape), after the card's name and power limit; the last
+line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
 and prints no result.  JAX is never imported.
 """
@@ -113,6 +127,33 @@ def require(ok, msg) -> None:
         raise SmokeFailure(msg)
 
 
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at a
+# 700 W limit): HBM bytes/s; bf16 tensor-core FLOP/s; products held to the
+# f32 contract, whose fastest f32-accurate route is 3xTF32 on the tensor
+# cores (495 TFLOP/s TF32 / 3); other f32 arithmetic on the SIMT units.
+HBM_BYTES_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32_MM = 495e12 / 3
+PEAK_F32 = 67e12
+
+
+def mm(m, n, k, peak):
+    """(operations, peak) of an [m, k] x [k, n] product."""
+    return (2.0 * m * n * k, peak)
+
+
+def attn(b, h, s, d, pv_peak=PEAK_F32_MM, qk_peak=PEAK_F32_MM, products=2):
+    """(operations, peak) of per-(sequence, head) attention products: the
+    scores, then P.V (and, for a backward, three more at pv_peak)."""
+    one = 2.0 * b * h * s * s * d
+    return [(one, qk_peak), ((products - 1) * one, pv_peak)]
+
+
+def elementwise(n, per=10):
+    """(operations, peak) of ~per f32 operations on each of n values."""
+    return (float(n) * per, PEAK_F32)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of one call, in ms."""
     import torch
@@ -137,16 +178,34 @@ class Checks:
     def __init__(self):
         self.results = {}
 
-    def compare(self, name, label, kernel_fn, plain_fn, tol_fn, tol_text):
+    def compare(self, name, label, kernel_fn, plain_fn, tol_fn, tol_text,
+                inputs=(), ops=(), library=None, library_text="none"):
         """``kernel_fn`` / ``plain_fn`` return a tensor or a tuple of them;
         ``tol_fn`` is one function of the plain output or a tuple of them,
-        one per output.  The error reported is the largest over outputs."""
+        one per output.  The error reported is the largest over outputs.
+
+        The bound is the larger of the bytes moved (each tensor of
+        ``inputs`` read once, each output written once) over the HBM rate
+        and the sum of ``ops`` ((operations, peak) pairs) over their peaks.
+        ``library``: one PyTorch call computing the same function on the
+        same inputs (the yardstick; the port never calls it), or None with
+        ``library_text`` saying why there is none.  Returns this call's
+        measurements."""
         import torch
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
         if isinstance(got, torch.Tensor):
             got, want, tol_fn = (got,), (want,), (tol_fn,)
+        seen, moved = set(), 0
+        for t in (*inputs, *got):
+            if t is not None and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                moved += t.numel() * t.element_size()
+        ops = [ops] if ops and not isinstance(ops[0], (tuple, list)) else ops
+        bytes_ms = 1e3 * moved / HBM_BYTES_S
+        ops_ms = 1e3 * sum(n / peak for n, peak in ops)
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
         errs = [(g.float() - w.float()).abs().max().item()
                 for g, w in zip(got, want)]
         tols = [f(w) for f, w in zip(tol_fn, want)]
@@ -155,15 +214,20 @@ class Checks:
         err, tol = max(errs), max(tols)
         ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
+        library_ms = time_ms(library) if library is not None else None
+        lib = (f"{library_ms:.4f} ms ({library_text})" if library is not None
+               else f"none ({library_text})")
         log(f"  {name:18s} {label:34s} max_abs_err "
             f"{' '.join(f'{e:.3e}' for e in errs)} <= "
             f"{' '.join(f'{t:.3e}' for t in tols)} "
             f"({tol_text}) {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+            f"library {lib}")
         require(ok, f"{name} {label}: max_abs_err {errs} > {tols}")
-        self.results.setdefault(name, dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms))
-        return err
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        self.results.setdefault(name, row)
+        return row
 
 
 def bf16_quanta(n):
@@ -174,6 +238,91 @@ def bf16_quanta(n):
 def f32_tol(want):
     """f32 sums in another order: 1e-4 relative to max(1, max|want|)."""
     return 1e-4 * max(1.0, want.abs().max().item())
+
+
+# the kernel functions of the attention kernels built on the tensor cores
+TENSOR_CORE_KERNELS = ("attention_fwd_kernel", "fa_bwd_query_kernel",
+                       "fa_bwd_key_kernel")
+
+
+def kernel_report(K):
+    """Per kernel function of the redesigned attention kernels: registers,
+    stack and static shared memory (``cuobjdump -res-usage``), bytes
+    spilled (ptxas -v in the build log, when this process built the
+    libraries) and the tensor-core MMA instructions in its SASS
+    (``cuobjdump -sass``)."""
+    bindir = os.path.dirname(K._nvcc())
+
+    def tool(name):
+        path = os.path.join(bindir, name)
+        return path if os.path.exists(path) else name
+
+    def short(name):
+        for exe in (tool("cu++filt"), "c++filt"):
+            try:
+                out = subprocess.run([exe, name], capture_output=True, text=True,
+                                     timeout=30).stdout.strip()
+            except OSError:
+                continue
+            if out and out != name:
+                return re.sub(r"\(.*", "", out).replace("(anonymous namespace)::", "")
+        return name
+
+    spills, fn = {}, None
+    for ln in K.BUILD_LOG.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+    usage, mma = {}, {}
+    for lib in sorted(K.BUILD_DIR.glob("lib*.so")):
+        res = subprocess.run([tool("cuobjdump"), "-res-usage", str(lib)],
+                             capture_output=True, text=True, timeout=300).stdout
+        fn = None
+        for ln in res.splitlines():
+            m = re.search(r"Function (\S+?):?\s*$", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", ln)
+            if fn and m:
+                usage[fn] = tuple(int(x) for x in m.groups())
+        sass = subprocess.run([tool("cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                mma.setdefault(fn, 0)
+            elif fn and re.search(r"\bH(G)?MMA\b", ln):
+                mma[fn] += 1
+    rows = []
+    for fn in sorted(set(usage) | set(mma)):
+        if any(k in fn for k in TENSOR_CORE_KERNELS):
+            reg, stack, shared, _ = usage.get(fn, (None,) * 4)
+            spill = (f"spilled {spills[fn]} bytes" if fn in spills else
+                     f"stack frame {stack} bytes (its spills are in the log of "
+                     f"the build that made the library)")
+            rows.append((short(fn), reg, spill, shared, mma.get(fn, 0)))
+    return rows
+
+
+def phase_tensor_cores(K) -> None:
+    """Phase 1's report of the redesigned kernels; each must hold
+    tensor-core MMAs."""
+    import torch
+    rows = kernel_report(K)
+    log("  tensor-core kernels (ptxas -v; MMA instructions in the SASS):")
+    for name, regs, spill, smem, mma_n in rows:
+        log(f"    {name}: {regs} registers, {spill}, {smem} bytes static smem, "
+            f"{mma_n} HMMA/HGMMA")
+    for kern in TENSOR_CORE_KERNELS:
+        found = [r for r in rows if kern in r[0]]
+        require(found and all(r[4] > 0 for r in found),
+                f"{kern}: no tensor-core MMA in its SASS: {found}")
 
 
 def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
@@ -204,43 +353,136 @@ def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
             tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if dname == "f32"
                          else (bf16_quanta(2), "2 bf16 quanta"))
             args = (y, s, b, gsize, eps, alpha)
+            why = ("no one call normalizes each channel group of a row with "
+                   "a per-channel affine and the folded LeakyReLU")
             checks.compare("group_flat_norm_fwd", label,
                            lambda: K.group_flat_norm_fwd(*args),
                            lambda: K.group_flat_norm_fwd_plain(*args),
-                           tol, text)
+                           tol, text, inputs=(y, s, b),
+                           ops=elementwise(rows * f, 10), library_text=why)
             bargs = (y, go, s, b, gsize, eps, alpha)
             checks.compare("group_flat_norm_bwd", label,
                            lambda: K.group_flat_norm_bwd(*bargs),
                            lambda: K.group_flat_norm_bwd_plain(*bargs),
                            (tol, f32_tol, f32_tol),
                            f"dy {text}; dscale, dbias (float32 sums over "
-                           f"all rows) 1e-4 x max(1,|plain|)")
+                           f"all rows) 1e-4 x max(1,|plain|)",
+                           inputs=(y, go, s, b), ops=elementwise(rows * f, 20),
+                           library_text=why)
             again = K.group_flat_norm_bwd(*bargs)
             first = K.group_flat_norm_bwd(*bargs)
             require(torch.equal(again[1], first[1])
                     and torch.equal(again[2], first[2]),
                     f"K2 dscale/dbias differ between runs at {label}")
-    b_, n, c, heads, scale = TRAIN_BATCH["transunet"], 80, 512, 4, 0.5
-    qk = rand(b_ * n, 2 * c, scale=0.3)
-    for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        qkv = torch.cat([qk, rand(b_ * n, c)], dim=1).to(dt)
-        go = rand(b_ * n, c, dtype=dt)
-        label = f"b{b_} N{n} C{c} h{heads} {dname}"
-        f32 = dname == "f32"
-        tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
-                     else (bf16_quanta(2), "2 bf16 quanta"))
-        checks.compare("flash_attention_fwd", label,
-                       lambda: K.flash_attention_fwd(qkv, n, heads, scale),
-                       lambda: K.flash_attention_fwd_plain(qkv, n, heads, scale),
-                       (tol, f32_tol), f"ctx {text}; LSE 1e-4")
-        _, lse = K.flash_attention_fwd_plain(qkv, n, heads, scale)
-        btol, btext = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
-                       else (bf16_quanta(4), "4 bf16 quanta"))
-        checks.compare("flash_attention_bwd", label,
-                       lambda: K.flash_attention_bwd(qkv, lse, go, n, heads, scale),
-                       lambda: K.flash_attention_bwd_plain(qkv, lse, go, n,
-                                                           heads, scale),
-                       btol, btext)
+    # K3 at the TransUNet (b32, N 80, C 512, 4 heads) and the ViT (b8, N
+    # 160, C 1280, 8 heads) train shapes
+    for b_, n, c, heads in ((TRAIN_BATCH["transunet"], 80, 512, 4),
+                            (TRAIN_BATCH["vit"], 160, 1280, 8)):
+        scale, d = heads ** -0.5, c // heads
+        qk = rand(b_ * n, 2 * c, scale=0.3)
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            qkv = torch.cat([qk, rand(b_ * n, c)], dim=1).to(dt)
+            go = rand(b_ * n, c, dtype=dt)
+            label = f"b{b_} N{n} C{c} h{heads} {dname}"
+            f32 = dname == "f32"
+            peak = PEAK_F32_MM if f32 else PEAK_BF16
+            tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                         else (bf16_quanta(2), "2 bf16 quanta"))
+            fwd = checks.compare("flash_attention_fwd", label,
+                                 lambda: K.flash_attention_fwd(qkv, n, heads, scale),
+                                 lambda: K.flash_attention_fwd_plain(qkv, n, heads, scale),
+                                 (tol, f32_tol), f"ctx {text}; LSE 1e-4", inputs=(qkv,),
+                                 ops=attn(b_, heads, n, d, peak, peak),
+                                 library=lambda: sdpa(qkv, n, heads, scale),
+                                 library_text=f"SDPA {dname}, context only")
+            _, lse = K.flash_attention_fwd_plain(qkv, n, heads, scale)
+            btol, btext = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                           else (bf16_quanta(4), "4 bf16 quanta"))
+            bwd = checks.compare("flash_attention_bwd", label,
+                                 lambda: K.flash_attention_bwd(qkv, lse, go, n, heads, scale),
+                                 lambda: K.flash_attention_bwd_plain(qkv, lse, go, n,
+                                                                     heads, scale),
+                                 btol, btext, inputs=(qkv, lse, go),
+                                 ops=attn(b_, heads, n, d, peak, peak, products=5),
+                                 library=sdpa_bwd(qkv, go, n, heads, scale),
+                                 library_text=f"SDPA {dname}: autograd.grad alone")
+            both = time_ms(lambda: sdpa_grad(qkv, go, n, heads, scale))
+            log(f"  K3 forward + backward {label}: kernel "
+                f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA forward + autograd.grad "
+                f"{both:.4f} ms")
+
+
+def sdpa(qkv, n, heads, scale):
+    """The library yardstick of an attention core: one
+    scaled_dot_product_attention call on q, k, v views of the packed
+    projection (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    b, c3 = qkv.shape[0] // n, qkv.shape[1]
+    q, k, v = qkv.view(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+
+def _sdpa_graph(qkv, go, n, heads, scale):
+    import torch
+    x = qkv.detach().requires_grad_()
+    out = sdpa(x, n, heads, scale)
+    b, h, _, d = out.shape
+    return x, out, go.view(b, n, h, d).transpose(1, 2)
+
+
+def sdpa_grad(qkv, go, n, heads, scale):
+    """SDPA forward and autograd's backward to the packed projection."""
+    import torch
+    x, out, gout = _sdpa_graph(qkv, go, n, heads, scale)
+    return torch.autograd.grad(out, x, gout)[0]
+
+
+def sdpa_bwd(qkv, go, n, heads, scale):
+    """SDPA's backward alone: the forward runs once, here; each call of the
+    function returned runs autograd's backward to the packed projection
+    (the graph is kept between calls)."""
+    import torch
+    x, out, gout = _sdpa_graph(qkv, go, n, heads, scale)
+    return lambda: torch.autograd.grad(out, x, gout, retain_graph=True)[0]
+
+
+def mha(x, qkv_w, qkv_b, proj_w, proj_b, heads, scale, addmask=None):
+    """K4's library yardstick: one F.multi_head_attention_forward call on
+    the same windows.  Its score scale is fixed at d^-0.5, so the q rows of
+    the projection are pre-scaled by scale * d^0.5 (once, here); addmask
+    [nW, H, N, N] becomes its per-(window, head) attn_mask."""
+    import torch.nn.functional as F
+    nbw, n, c = x.shape
+    f = scale * (c // heads) ** 0.5
+    w, bq = qkv_w.clone(), qkv_b.clone()
+    w[:c] *= f
+    bq[:c] *= f
+    mask = None
+    if addmask is not None:
+        nw = addmask.shape[0]
+        mask = addmask.repeat(nbw // nw, 1, 1, 1).reshape(nbw * heads, n, n)
+    xt = x.transpose(0, 1)
+    return lambda: F.multi_head_attention_forward(
+        xt, xt, xt, c, heads, w, bq, None, None, False, 0.0, proj_w, proj_b,
+        training=False, need_weights=False, attn_mask=mask)[0]
+
+
+def block_ops(b, s, c, heads, mlp):
+    """K1's products: four bf16 GEMMs and the attention core."""
+    m = b * s
+    return [mm(m, 3 * c, c, PEAK_BF16), mm(m, c, c, PEAK_BF16),
+            mm(m, mlp, c, PEAK_BF16), mm(m, c, mlp, PEAK_BF16),
+            *attn(b, heads, s, c // heads, PEAK_BF16)]
+
+
+def window_ops(b, s, c, heads):
+    """K4's products, all held to the f32 contract."""
+    return [mm(b * s, 3 * c, c, PEAK_F32_MM), mm(b * s, c, c, PEAK_F32_MM),
+            *attn(b, heads, s, c // heads)]
+
+
+K1_NONE = ("no one call runs the whole pre-LN block in K1's bf16 / f32 "
+           "contract")
 
 
 def phase_kernels(checks: Checks, dev, seed: int) -> None:
@@ -273,11 +515,15 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
     checks.compare("transformer_block", "K1 b64 S80 C512 h4 mlp2048 bf16",
                    lambda: K.transformer_block(x, w, heads, scale, eps),
                    lambda: K.transformer_block_plain(x, w, heads, scale, eps),
-                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|",
+                   inputs=(x, *w), ops=block_ops(b, s, c, heads, mlp),
+                   library_text=K1_NONE)
     checks.compare("transformer_block", "K1 same, folded final LN",
                    lambda: K.transformer_block(x, w, heads, scale, eps, fin),
                    lambda: K.transformer_block_plain(x, w, heads, scale, eps, fin),
-                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|",
+                   inputs=(x, *w, *fin), ops=block_ops(b, s, c, heads, mlp),
+                   library_text=K1_NONE)
     # K1's entry points at the layer's shapes
     x2 = x.reshape(b * s, c)
     h = K.layer_norm_plain(x2, w.ln1_w, w.ln1_b, eps, bf)
@@ -285,30 +531,48 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
     h2 = K.layer_norm_plain(qkv[:, :c].contiguous(), w.ln2_w, w.ln2_b, eps, bf)
     m = K.linear_plain(h2, w.fc1_w, w.fc1_b, gelu=True, out_dtype=bf)
     x1 = qkv[:, c:2 * c].contiguous()
+    import torch.nn.functional as F
+    ln_w, ln_b = w.ln1_w.to(bf), w.ln1_b.to(bf)
     checks.compare("tb_layer_norm", "LN [5120,512] bf16->bf16",
                    lambda: K.layer_norm(x2, w.ln1_w, w.ln1_b, eps, bf),
                    lambda: K.layer_norm_plain(x2, w.ln1_w, w.ln1_b, eps, bf),
-                   bf16_quanta(2), "2 bf16 quanta")
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(x2, w.ln1_w, w.ln1_b),
+                   ops=elementwise(b * s * c, 8),
+                   library=lambda: F.layer_norm(x2, (c,), ln_w, ln_b, eps),
+                   library_text="F.layer_norm, its weights in bf16")
     checks.compare("tb_layer_norm", "LN [5120,512] f32->bf16",
                    lambda: K.layer_norm(x1, fin[0], fin[1], eps, bf),
                    lambda: K.layer_norm_plain(x1, fin[0], fin[1], eps, bf),
-                   bf16_quanta(2), "2 bf16 quanta")
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(x1, *fin),
+                   ops=elementwise(b * s * c, 8),
+                   library_text="no one call takes f32 in and gives bf16 out")
+    qkv_bb = w.qkv_b.to(bf)
     checks.compare("tb_linear", "qkv 5120x1536x512 +b ->f32",
                    lambda: K.linear(h, w.qkv_w, w.qkv_b),
                    lambda: K.linear_plain(h, w.qkv_w, w.qkv_b), f32_tol,
-                   "1e-4 x max(1,|plain|)")
+                   "1e-4 x max(1,|plain|)", inputs=(h, w.qkv_w, w.qkv_b),
+                   ops=mm(b * s, 3 * c, c, PEAK_BF16),
+                   library=lambda: F.linear(h, w.qkv_w, qkv_bb),
+                   library_text="F.linear bf16 (cuBLAS; bf16 out)")
     checks.compare("tb_linear", "fc1 5120x2048x512 +b GELU ->bf16",
                    lambda: K.linear(h2, w.fc1_w, w.fc1_b, gelu=True, out_dtype=bf),
                    lambda: K.linear_plain(h2, w.fc1_w, w.fc1_b, gelu=True, out_dtype=bf),
-                   bf16_quanta(2), "2 bf16 quanta")
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(h2, w.fc1_w, w.fc1_b),
+                   ops=mm(b * s, mlp, c, PEAK_BF16),
+                   library_text="F.linear has no fused GELU")
     checks.compare("tb_linear", "fc2 5120x512x2048 +b +res ->bf16",
                    lambda: K.linear(m, w.fc2_w, w.fc2_b, residual=x1, out_dtype=bf),
                    lambda: K.linear_plain(m, w.fc2_w, w.fc2_b, residual=x1, out_dtype=bf),
-                   bf16_quanta(2), "2 bf16 quanta")
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(m, w.fc2_w, w.fc2_b, x1),
+                   ops=mm(b * s, c, mlp, PEAK_BF16),
+                   library_text="F.linear has no fused residual")
     checks.compare("tb_attention_core", "b64 S80 h4 d128 P,V bf16",
                    lambda: K.attention_core(qkv, s, heads, scale, pv_bf16=True, out_dtype=bf),
                    lambda: K.attention_core_plain(qkv, s, heads, scale, pv_bf16=True, out_dtype=bf),
-                   bf16_quanta(2), "2 bf16 quanta")
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(qkv,),
+                   ops=attn(b, heads, s, c // heads, PEAK_BF16),
+                   library=lambda: sdpa(qkv, s, heads, scale),
+                   library_text="SDPA f32 on the same q, k, v")
 
     # K4 at the TransUNet f32 shape: batch 64 windows of 80 tokens, no bias
     xf = rand(b, s, c)
@@ -316,19 +580,28 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
                        rand(c, c, scale=lin)])
     qkv_b, proj_w, proj_b = rand(3 * c, scale=0.1), rand(c, c, scale=lin), rand(c, scale=0.1)
     args = (xf, qkv_w, qkv_b, proj_w, proj_b, heads)
+    mha_text = "F.multi_head_attention_forward, q weights pre-scaled"
     checks.compare("window_attention", "K4 b64 N80 C512 h4 f32 no bias",
                    lambda: K.window_attention(*args, scale=scale),
                    lambda: K.window_attention_plain(*args, scale=scale),
-                   f32_tol, "1e-4 x max(1,|plain|)")
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=args[:5],
+                   ops=window_ops(b, s, c, heads),
+                   library=mha(*args, scale), library_text=mha_text)
     xq = K.linear_plain(xf.reshape(b * s, c), qkv_w, qkv_b)
     checks.compare("wa_linear", "qkv 5120x1536x512 f32",
                    lambda: K.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
                    lambda: K.linear_plain(xf.reshape(b * s, c), qkv_w, qkv_b),
-                   f32_tol, "1e-4 x max(1,|plain|)")
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(xf, qkv_w, qkv_b),
+                   ops=mm(b * s, 3 * c, c, PEAK_F32_MM),
+                   library=lambda: F.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
+                   library_text="F.linear f32 (cuBLAS, TF32 off)")
     checks.compare("wa_attention_core", "b64 S80 h4 d128 f32",
                    lambda: K.attention_core(xq, s, heads, scale),
                    lambda: K.attention_core_plain(xq, s, heads, scale),
-                   f32_tol, "1e-4 x max(1,|plain|)")
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(xq,),
+                   ops=attn(b, heads, s, c // heads),
+                   library=lambda: sdpa(xq, s, heads, scale),
+                   library_text="SDPA f32 on the same q, k, v")
     # K4 at a Swin shape: 4x5 windows (N 20), C 96, 3 heads, bias + shift mask
     nw, cs, hs = 8, 96, 3
     xs = rand(b * nw, 20, cs)
@@ -339,10 +612,15 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
     sargs = (xs, rand(3 * cs, cs, scale=cs ** -0.5), rand(3 * cs, scale=0.1),
              rand(cs, cs, scale=cs ** -0.5), rand(cs, scale=0.1), hs)
     skw = dict(bias_table=table, rel_index=rel, mask=mask)
+    from ultrasound_modeling_tpu_torch.ops import window_attn
+    am = window_attn.additive_matrix(hs, 20, table, rel, mask)
     checks.compare("window_attention", "K4 Swin nBW512 N20 C96 h3 mask",
                    lambda: K.window_attention(*sargs, **skw),
                    lambda: K.window_attention_plain(*sargs, **skw),
-                   f32_tol, "1e-4 x max(1,|plain|)")
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(*sargs[:5], am),
+                   ops=window_ops(b * nw, 20, cs, hs),
+                   library=mha(*sargs, (cs // hs) ** -0.5, am),
+                   library_text="F.multi_head_attention_forward, its own d^-0.5")
 
 
 def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
@@ -371,20 +649,49 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
             tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if dname == "f32"
                          else (bf16_quanta(2), "2 bf16 quanta"))
             label = f"K5 b{b} N{n} C{c} h{heads} {dname}"
+            pk = PEAK_F32_MM if dname == "f32" else PEAK_BF16
             checks.compare("attention_train", label,
                            lambda: K.attention_train_fwd(*args),
                            lambda: K.attention_train_fwd_plain(*args),
-                           (tol, tol, tol), f"out, qkv, P {text}")
+                           (tol, tol, tol), f"out, qkv, P {text}", inputs=args[:5],
+                           ops=[mm(b * n, 3 * c, c, pk), mm(b * n, c, c, pk),
+                                *attn(b, heads, n, c // heads)],
+                           library_text="no one call also returns the saved P "
+                                        "and qkv")
             if b == 8:
                 cargs = (K.linear_plain(*args[:3]), n, heads, heads ** -0.5, dt)
                 checks.compare("at_attention_core", f"b{b} S{n} h{heads} "
                                f"d{c // heads} {dname}",
                                lambda: K.attention_train_core(*cargs),
                                lambda: K.attention_train_core_plain(*cargs),
-                               (tol, tol, tol), f"ctx, qkv, P {text}")
-    # K1 at the ViT serving shape: batch 64 x 160 tokens, C 1280, 8 heads
+                               (tol, tol, tol), f"ctx, qkv, P {text}",
+                               inputs=cargs[:1], ops=attn(b, heads, n, c // heads),
+                               library_text="SDPA does not return P")
+    # K1's and K4's attention cores at the ViT serving shape: batch 64 x 160
+    # tokens, C 1280, 8 heads (head dim 160)
     b, s, c, heads, mlp = BATCH, 160, 1280, 8, 2048
     eps, scale, lin = 1e-6, 8 ** -0.5, c ** -0.5
+    qkv = torch.cat([rand(b * s, 2 * c, scale=0.3), rand(b * s, c)], dim=1)
+    qkv_bf = qkv.to(bf)   # SDPA's bf16 operands, rounded once, untimed
+    checks.compare("tb_attention_core", "ViT b64 S160 h8 d160 P,V bf16",
+                   lambda: K.attention_core(qkv, s, heads, scale, pv_bf16=True,
+                                            out_dtype=bf),
+                   lambda: K.attention_core_plain(qkv, s, heads, scale, pv_bf16=True,
+                                                  out_dtype=bf),
+                   bf16_quanta(2), "2 bf16 quanta", inputs=(qkv,),
+                   ops=attn(b, heads, s, c // heads, PEAK_BF16),
+                   library=lambda: sdpa(qkv_bf, s, heads, scale),
+                   library_text="SDPA bf16 on q, k, v rounded to bf16 "
+                                "beforehand (half the kernel's input bytes)")
+    checks.compare("wa_attention_core", "ViT b64 S160 h8 d160 f32",
+                   lambda: K.attention_core(qkv, s, heads, scale),
+                   lambda: K.attention_core_plain(qkv, s, heads, scale),
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(qkv,),
+                   ops=attn(b, heads, s, c // heads),
+                   library=lambda: sdpa(qkv, s, heads, scale),
+                   library_text="SDPA f32 on the same q, k, v")
+    del qkv, qkv_bf
+    # K1 at the ViT serving shape
     w = K.BlockWeights(
         1 + rand(c, scale=0.1), rand(c, scale=0.1),
         torch.cat([rand(2 * c, c, scale=lin * 0.05), rand(c, c, scale=lin)]).to(bf),
@@ -397,11 +704,15 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
     checks.compare("transformer_block", "K1 ViT b64 S160 C1280 h8 bf16",
                    lambda: K.transformer_block(x, w, heads, scale, eps),
                    lambda: K.transformer_block_plain(x, w, heads, scale, eps),
-                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|",
+                   inputs=(x, *w), ops=block_ops(b, s, c, heads, mlp),
+                   library_text=K1_NONE)
     checks.compare("transformer_block", "K1 ViT same, folded final LN",
                    lambda: K.transformer_block(x, w, heads, scale, eps, fin),
                    lambda: K.transformer_block_plain(x, w, heads, scale, eps, fin),
-                   bf16_quanta(4), "4 bf16 quanta of max|plain|")
+                   bf16_quanta(4), "4 bf16 quanta of max|plain|",
+                   inputs=(x, *w, *fin), ops=block_ops(b, s, c, heads, mlp),
+                   library_text=K1_NONE)
     del x, w
     # K4 at the ViT f32 serving shape: 64 windows of 160 tokens, no bias
     xf = rand(b, s, c)
@@ -410,7 +721,10 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
     checks.compare("window_attention", "K4 ViT b64 N160 C1280 h8 f32",
                    lambda: K.window_attention(*args, scale=scale),
                    lambda: K.window_attention_plain(*args, scale=scale),
-                   f32_tol, "1e-4 x max(1,|plain|)")
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=args[:5],
+                   ops=window_ops(b, s, c, heads), library=mha(*args, scale),
+                   library_text="F.multi_head_attention_forward, q weights "
+                                "pre-scaled")
     del xf, args
     # K6 on a train batch's labels, straddling the 0.95 / 1.05 thresholds
     lab = torch.rand(TRAIN_BATCH["transunet"], 256, 80, generator=g).to(dev) * 2.3 - 0.1
@@ -418,7 +732,10 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
         checks.compare("label2vec_smooth", f"K6 [32,256,80] smoothing {sm}",
                        lambda: K.label2vec_smooth(lab, sm),
                        lambda: K.label2vec_smooth_plain(lab, sm),
-                       lambda want: 0.0, "exact")
+                       lambda want: 0.0, "exact", inputs=(lab,),
+                       ops=elementwise(lab.numel(), 6),
+                       library_text="no one call maps a label to the smoothed "
+                                    "3-class vector")
 
 
 def seeded_model(family: str, seed: int, dtype: str = "f32",
@@ -427,7 +744,7 @@ def seeded_model(family: str, seed: int, dtype: str = "f32",
     weights (q/k kernels damped), loaded through the bridge; returns
     (model, flat flax dict)."""
     import dataclasses
-    from ultrasound_modeling_tpu.config import default_config
+    from ultrasound_modeling_tpu_torch.config import default_config
     from ultrasound_modeling_tpu_torch.models.registry import build_model
     from ultrasound_modeling_tpu_torch.utils.checkpoint import (
         from_flax, random_flax_variables)
@@ -507,7 +824,7 @@ def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
     """A main path: serve from an npz, as `cli serve --model family` does,
     f32 and bf16."""
     import numpy as np
-    from ultrasound_modeling_tpu.infer.server import InferenceServer
+    from ultrasound_modeling_tpu_torch.infer.server import InferenceServer
     from ultrasound_modeling_tpu_torch import cli
     from ultrasound_modeling_tpu_torch.ops import kernels as K
 
@@ -615,7 +932,7 @@ def phase_train_step(dev, seed: int):
     """One train step, kernel route vs plain route, then timed steps."""
     import numpy as np
     import torch
-    from ultrasound_modeling_tpu.config import default_config
+    from ultrasound_modeling_tpu_torch.config import default_config
     from ultrasound_modeling_tpu_torch.data import synthetic
     from ultrasound_modeling_tpu_torch.data.labels import label2vec
     from ultrasound_modeling_tpu_torch.ops import kernels as K
@@ -847,7 +1164,6 @@ def main(argv=None) -> int:
              if "registers" in ln or "spill" in ln]
     for ln in ptxas:
         log(f"  ptxas: {ln}")
-
     checks = Checks()
     # launches per kernel summed over the main paths, each path driven with
     # the counters zeroed just before it and read just after
@@ -858,6 +1174,7 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
 
     try:
+        phase_tensor_cores(K)
         phase_kernels(checks, dev, args.seed)
         phase_train_kernels(checks, dev, args.seed)
         phase_vit_kernels(checks, dev, args.seed)
@@ -899,7 +1216,8 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

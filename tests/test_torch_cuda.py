@@ -261,6 +261,69 @@ def test_attention_train_fwd_matches_plain(cuda, b, seq, c, heads, dtype):
         assert (gt.float() - wt.float()).abs().max().item() <= tol
 
 
+RAGGED_SEQ = [20, 77, 80, 150, 160]   # one tile, tile edges, two and three tiles
+RAGGED_D = [32, 128, 160]
+
+
+def _qkv(g, dev, b, seq, c, dtype=torch.float32):
+    qk = _rand(g, dev, b * seq, 2 * c, scale=0.3)
+    return torch.cat([qk, _rand(g, dev, b * seq, c)], dim=1).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", RAGGED_SEQ)
+@pytest.mark.parametrize("d", RAGGED_D)
+def test_attention_core_variants_at_ragged_shapes(cuda, seq, d):
+    """The tensor-core forward core in each of its launchers: K1's (P, V
+    rounded to bf16), K4's with an additive matrix (three windows' worth,
+    -inf-free), K5's f32 and bf16 (context, saved qkv, P)."""
+    g = torch.Generator().manual_seed(10 + seq + d)
+    heads, b = 2, 3
+    c = heads * d
+    qkv = _qkv(g, cuda, b, seq, c)
+    scale = d ** -0.5
+    got = K.attention_core(qkv, seq, heads, scale, pv_bf16=True, out_dtype=BF)
+    want = K.attention_core_plain(qkv, seq, heads, scale, pv_bf16=True,
+                                  out_dtype=BF)
+    assert (got.float() - want.float()).abs().max().item() <= _quanta(want, 2)
+    mask = _rand(g, cuda, 3, heads, seq, seq)
+    got = K.attention_core(qkv, seq, heads, scale, addmask=mask)
+    want = K.attention_core_plain(qkv, seq, heads, scale, addmask=mask)
+    assert (got - want).abs().max().item() <= _f32_tol(want)
+    for dt in (torch.float32, BF):
+        got = K.attention_train_core(qkv, seq, heads, scale, dt)
+        want = K.attention_train_core_plain(qkv, seq, heads, scale, dt)
+        for gt, wt in zip(got, want):
+            assert gt.dtype == wt.dtype == dt and gt.shape == wt.shape
+            tol = _f32_tol(wt) if dt == torch.float32 else _quanta(wt, 2)
+            assert (gt.float() - wt.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", RAGGED_SEQ)
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_flash_attention_at_ragged_shapes(cuda, seq, d, dtype):
+    """K3's forward and both passes of its backward across tile edges (key
+    tiles and query tiles alike) and head widths."""
+    g = torch.Generator().manual_seed(20 + seq + d)
+    heads, b = 2, 3
+    c = heads * d
+    qkv = _qkv(g, cuda, b, seq, c, dtype)
+    go = _rand(g, cuda, b * seq, c, dtype=dtype)
+    scale = d ** -0.5
+    f32 = dtype == torch.float32
+    ctx, lse = K.flash_attention_fwd(qkv, seq, heads, scale)
+    wctx, wlse = K.flash_attention_fwd_plain(qkv, seq, heads, scale)
+    assert (ctx.float() - wctx.float()).abs().max().item() <= (
+        _f32_tol(wctx) if f32 else _quanta(wctx, 2))
+    assert (lse - wlse).abs().max().item() <= _f32_tol(wlse)
+    dqkv = K.flash_attention_bwd(qkv, wlse, go, seq, heads, scale)
+    want = K.flash_attention_bwd_plain(qkv, wlse, go, seq, heads, scale)
+    assert (dqkv.float() - want.float()).abs().max().item() <= (
+        _f32_tol(want) if f32 else _quanta(want, 4))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_label2vec_smooth_matches_plain(cuda, smoothing):
@@ -273,6 +336,16 @@ def test_label2vec_smooth_matches_plain(cuda, smoothing):
     got = K.label2vec_smooth(lab, smoothing)
     assert K.LAUNCHES["label2vec_smooth"] == 1
     assert torch.equal(got, K.label2vec_smooth_plain(lab, smoothing))
+
+
+def test_ragged_shape_lists_cover_the_tile_edges():
+    """The shapes above straddle the 64-row tile (77, 150), fill one and
+    three tiles (20, 160) and cross the 80-token register bucket (80 vs
+    150); the head widths are the Swin, TransUNet and ViT ones."""
+    tiles = {-(-s // 64) for s in RAGGED_SEQ}
+    assert tiles == {1, 2, 3}
+    assert any(s % 64 for s in RAGGED_SEQ) and max(RAGGED_SEQ) == K.MAX_SEQ
+    assert max(RAGGED_D) == K.MAX_HEAD_DIM and min(RAGGED_D) == 32
 
 
 def test_wrapper_device_routing():

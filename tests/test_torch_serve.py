@@ -1,4 +1,4 @@
-"""The port's serving path: the shared HTTP server over the port's forward,
+"""The port's serving path: the port's HTTP server over the port's forward,
 in a fresh interpreter that must never import jax or flax, and the cli's
 refusals (no weights; a CUDA request without a card)."""
 
@@ -16,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SERVE_SCRIPT = r"""
 import io, json, sys, threading, urllib.request
 import numpy as np, torch
-from ultrasound_modeling_tpu.infer.server import InferenceServer
+from ultrasound_modeling_tpu_torch.infer.server import InferenceServer
 from ultrasound_modeling_tpu_torch.cli import make_forward
 from ultrasound_modeling_tpu_torch.models.transunet import TransUNet
 from ultrasound_modeling_tpu_torch.utils.checkpoint import (

@@ -271,7 +271,8 @@ def test_dataset_cursor_matches_jax():
     x = rng.normal(size=(11, 4, 3, 2)).astype(np.float32)
     y = rng.normal(size=(11, 4, 3)).astype(np.float32)
     xt, yt = x[:5], y[:5]
-    jd, td = JaxDataset(x, y, xt, yt), Dataset(x, y, xt, yt)
+    jd = JaxDataset(x, y, xt, yt)
+    td = Dataset(x, y, xt, yt, device="cpu")
     calls = [("train", 4, False), ("train", 4, True), ("train", 4, False),
              ("train", 4, False), ("train", 4, False), ("test", 2, False),
              ("test", 2, False), ("test", 2, False), ("train", 3, False)]
@@ -292,7 +293,7 @@ def test_synthetic_arrays_match_jax_bit_for_bit():
     assert got.dtype == want.dtype and got.shape == want.shape
     assert np.array_equal(got, want)
     jd = JaxDataset.synthetic(4, 2, seed=2, height=32, width=16)
-    td = Dataset.synthetic(4, 2, seed=2, height=32, width=16)
+    td = Dataset.synthetic(4, 2, seed=2, height=32, width=16, device="cpu")
     for name in ("x_tr", "y_tr", "x_te", "y_te"):
         assert np.array_equal(getattr(td, name).numpy(),
                               np.asarray(getattr(jd, name))), name
@@ -464,8 +465,9 @@ def test_trainer_fit_tiny_on_cpu():
                                   attn_train_impl="flash"),
         train=dataclasses.replace(cfg.train, batch_size=4,
                                   eval_every_epochs=1))
-    ds = Dataset.synthetic(n_train=10, n_test=4, height=64, width=80)
-    trainer = Trainer(cfg, ds)
+    ds = Dataset.synthetic(n_train=10, n_test=4, height=64, width=80,
+                           device="cpu")
+    trainer = Trainer(cfg, ds, device="cpu")
     before = trainer.model.hybrid.convtmp_1bn.BatchNorm_0.running_var.clone()
     summary = trainer.fit(2)
     assert trainer.iteration == 6 and trainer.state.step == 6

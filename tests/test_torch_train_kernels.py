@@ -226,10 +226,12 @@ def test_k3_matches_composed_mha():
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("bad", ["heads", "seq", "head_dim", "dtype", "lse"])
+@pytest.mark.parametrize("bad", ["heads", "seq", "head_dim", "dtype", "lse",
+                                 "rows", "noncontig"])
 def test_k3_guards(bad):
-    """Raise on C % heads, seq > 160, head dim > 160, a non-float dtype and
-    an LSE of the wrong shape (the guards ADVICE.md:4 asks flash_mha for)."""
+    """Raise on C % heads, seq > 160, head dim > 160, a non-float dtype,
+    an LSE of the wrong shape (the guards ADVICE.md:4 asks flash_mha for),
+    rows that are not whole sequences and a non-contiguous qkv."""
     qkv, heads, seq = torch.zeros(40, 48), 4, 10
     if bad == "heads":
         heads = 5
@@ -239,6 +241,10 @@ def test_k3_guards(bad):
         qkv, heads = torch.zeros(10, 3 * 322), 2
     elif bad == "dtype":
         qkv = qkv.to(torch.float16)
+    elif bad == "rows":
+        qkv = torch.zeros(45, 48)
+    elif bad == "noncontig":
+        qkv = torch.zeros(48, 40).t()
     with pytest.raises((ValueError, TypeError)):
         if bad == "lse":
             K.flash_attention_bwd(qkv, torch.zeros(4, 4, 9), torch.zeros(40, 16),

@@ -289,8 +289,9 @@ def test_vit_trainer_fit_tiny_on_cpu():
     the config's L2 term: finite loss and metrics, and the weights moved."""
     cfg = _tiny_vit_cfg(batch_size=4, eval_every_epochs=1)
     assert cfg.train.l2_regularization == 1e-5
-    ds = Dataset.synthetic(n_train=8, n_test=4, height=32, width=20)
-    trainer = Trainer(cfg, ds)
+    ds = Dataset.synthetic(n_train=8, n_test=4, height=32, width=20,
+                           device="cpu")
+    trainer = Trainer(cfg, ds, device="cpu")
     before = trainer.model.head.weight.detach().clone()
     summary = trainer.fit(1)
     assert trainer.state.step == 2 and np.isfinite(trainer.last_epoch["loss"])
@@ -301,9 +302,10 @@ def test_vit_trainer_fit_tiny_on_cpu():
 @pytest.mark.parametrize("field,value", [("weight_decay", 1e-4),
                                          ("adam_mu_dtype", "bfloat16")])
 def test_trainer_refuses_unported_optimizer_options(field, value):
-    ds = Dataset.synthetic(n_train=4, n_test=4, height=32, width=20)
+    ds = Dataset.synthetic(n_train=4, n_test=4, height=32, width=20,
+                           device="cpu")
     with pytest.raises(NotImplementedError, match=field):
-        Trainer(_tiny_vit_cfg(**{field: value}), ds)
+        Trainer(_tiny_vit_cfg(**{field: value}), ds, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -22,11 +22,16 @@ Layout (mirrors the JAX package):
   train/                — cce_smooth, metrics, clip + Adam, train / eval
                           steps, Trainer
   utils/checkpoint.py   — flax-npz <-> torch state_dict bridge
+  utils/logging.py      — MetricLogger (JSONL + TensorBoard scalars)
+  infer/server.py       — the micro-batching HTTP InferenceServer
+  config.py             — the config dataclasses and default_config
+  device.py             — resolve_device: the card unless the CPU is asked
   cli.py                — ``train``, ``serve``
 
-Shared with the JAX package, imported as they are (none imports jax):
-``ultrasound_modeling_tpu.config``, ``ultrasound_modeling_tpu.infer.server``
-and ``ultrasound_modeling_tpu.utils.logging``.
+The port imports nothing of the JAX package: ``config.py``,
+``infer/server.py`` and ``utils/logging.py`` are its own copies of the
+framework-free modules there (``tests/test_torch_port_isolation.py``
+enforces the rule and holds the copies against the originals).
 """
 
 __version__ = "0.1.0"

@@ -19,10 +19,10 @@ Serving takes weights from the JAX side as a flax-layout npz
     python -m ultrasound_modeling_tpu_torch.cli serve [--model vit] \
         --params P.npz [--bf16]
 
-The server is the JAX package's ``infer/server.py`` (stdlib + numpy, shared
-as it is) over this port's forward; ``/predict`` takes float32 NHWC frames
-``[B, 256, 80, 10]`` and answers float32 probabilities ``[B, 256, 80, 3]``
-(both families).
+The server is ``infer/server.py``, the port's copy of the JAX package's
+(stdlib + numpy), over this port's forward; ``/predict`` takes float32 NHWC
+frames ``[B, 256, 80, 10]`` and answers float32 probabilities ``[B, 256, 80,
+3]`` (both families).
 """
 
 from __future__ import annotations
@@ -34,20 +34,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ultrasound_modeling_tpu.config import default_config
+from ultrasound_modeling_tpu_torch.config import default_config
+from ultrasound_modeling_tpu_torch.device import resolve_device
 
 PORTED = ("transunet", "vit")   # the model families this port builds
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device the user asked for; a CUDA request without a card is an
-    error, never a silent run on the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name} asked for, but torch sees no CUDA device "
-            f"(pass --device cpu to run on the CPU)")
-    return dev
 
 
 def build_serving_model(params_path: str, bf16: bool, device: torch.device,
@@ -79,7 +69,7 @@ def make_forward(model: torch.nn.Module, device: torch.device
 
 
 def cmd_serve(args) -> None:
-    from ultrasound_modeling_tpu.infer.server import InferenceServer
+    from ultrasound_modeling_tpu_torch.infer.server import InferenceServer
 
     if not args.params:
         raise SystemExit(
@@ -142,9 +132,9 @@ def build_dataset(cfg, args, device: torch.device):
 def cmd_train(args):
     """Train, print the final evaluation summary (empty when no epoch ran
     an evaluation, as in the JAX package) and return the Trainer."""
-    from ultrasound_modeling_tpu.utils.logging import MetricLogger
     from ultrasound_modeling_tpu_torch.models.common import full_f32_matmuls
     from ultrasound_modeling_tpu_torch.train.loop import Trainer
+    from ultrasound_modeling_tpu_torch.utils.logging import MetricLogger
 
     device = resolve_device(args.device)
     full_f32_matmuls()

@@ -22,11 +22,12 @@
 // under bf16 the context is rounded to bf16 before it (the tensor-core
 // GEMM takes bf16 operands) where the TPU kernel fed it unrounded.
 //
-// Bound: at the ViT train shape (b8, S 160, C 1280, 8 heads) a block owns
-// one (sequence, head): 2*2*S*S*d = 16 MFLOP on 206 KB of K/V in shared
-// memory; the projections (2*1280*C*4C = 16.8 GFLOP) dominate and run on
-// the GEMM kernels.  The extra stores are P (S*S per block, 0.8 MB per
-// layer in f32 at the ViT shape) and the bf16 qkv copy.
+// Bound: at the ViT train shape (b8, S 160, C 1280, 8 heads) the core
+// (attention_core.cuh: a block per (sequence, head, 64 query rows), both
+// products on the tensor cores) reads 26 MB of f32 qkv and writes P (6.6 MB
+// in f32), the context and, under bf16, the qkv copy; bytes bind (~11 us in
+// f32 at 3.35 TB/s).  The projections (2*1280*C*4C = 16.8 GFLOP) dominate
+// the layer and run on the GEMM kernels.
 
 #include "attention_core.cuh"
 #include "common.cuh"
@@ -45,12 +46,13 @@ int at_attention_core(const float* qkv, void* out, void* probs, void* qkv_save,
                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (io_bf16)
-    return um::launch_attention_core<bf16, false, bf16>(
-        qkv, nullptr, (bf16*)out, B, S, C, H, 1, scale, st, (bf16*)probs,
+    return um::launch_attention_fwd<float, false, bf16, bf16>(
+        qkv, nullptr, (bf16*)out, nullptr, B, S, C, H, 1, scale, true, st, (bf16*)probs,
         (bf16*)qkv_save);
   if (qkv_save) return (int)cudaErrorInvalidValue;
-  return um::launch_attention_core<float, false, float>(
-      qkv, nullptr, (float*)out, B, S, C, H, 1, scale, st, (float*)probs, nullptr);
+  return um::launch_attention_fwd<float, false, float, float>(
+      qkv, nullptr, (float*)out, nullptr, B, S, C, H, 1, scale, true, st, (float*)probs,
+      (float*)nullptr);
 }
 
 }  // extern "C"

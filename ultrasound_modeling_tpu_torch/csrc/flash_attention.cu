@@ -1,4 +1,5 @@
-// K3: flash-style attention core of the train path, forward and backward.
+// K3: flash-style attention core of the train path, forward and backward,
+// on the tensor cores.
 //
 // Replaces flash_mha (ultrasound_modeling_tpu/ops/pallas_kernels.py:655): the
 // forward _flash_fwd_pallas (:576, kernel _flash_core_fwd_kernel :510-529) and
@@ -14,244 +15,238 @@
 //   backward  P = exp(s - lse) (float32); dP = g.v^T; dS = P * (dP -
 //             rowsum(dP * P)) * scale, cast to qkv's type; dq = dS.k,
 //             dk = dS^T.q, dv = (P cast to qkv's type)^T.g -> dqkv [B*S, 3C].
-// All sums are float32; that is the JAX kernel's dtype contract.
+// All sums are float32; that is the JAX kernel's dtype contract.  Under
+// float32 every product runs as 3xTF32, under bf16 as bf16 MMAs (the
+// operands are bf16 in the contract: qkv, g, the cast P and dS).
 //
-// Bound: on the flagship (S = 80, d = 128, 4 heads, B = 32) a (sequence, head)
-// does 2*S*S*d = 1.6 MFLOP forward and three times that backward, on 80 KB of
-// K/V: next to the qkv/out projections around it this is small, so the first
-// version is simple and exact rather than fast (no tensor cores).  One CUDA
-// block owns one (sequence, head); the TPU kernel's packing of several
-// sequences into one MXU tile with a -1e9 off-diagonal mask (_flash_offdiag
-// :568-573, _pick_seqs_per_step :470-485) is dropped.  Sequences up to 160
-// fit one pass (no KV loop): each lane of a warp scores up to 5 keys.
-//
-// Staging: the head's operands sit in shared memory as float32 whatever
-// qkv's type: bf16 values convert exactly, every FMA runs in float32 anyway,
-// and converting once at staging saves a conversion per FMA.  Rows use the
-// odd stride d|1, so lane j reading row j hits its own bank.  The forward
-// stages K and V (2*S*(d|1) floats, 82.6 KB at the flagship shape).  Keeping
-// q, k, v, g and P/dS resident at once would need 4 * 80*129*4 B + 2 *
-// 80*81*4 B = 217 KB in float32 — at the edge of the 227 KB a block may use,
-// and out of reach for the ViT's S = d = 160 — so the backward runs in two
-// phases in one block: phase 1 stages K and V, walks the query rows (one warp
-// per row), writes dq, and stores P and dS (already cast) transposed into a
-// float32 scratch in device memory (2*B*H*S*S floats, 6.6 MB at the flagship
-// batch, L2-resident); after a block barrier, phase 2 stages Q and G in the
-// same shared memory and walks the key rows for dk and dv.
+// The forward is attention_core.cuh's kernel (scale after the product, LSE
+// out).  The backward is two deterministic passes with no float atomics and
+// no S x S scratch, on the same tiling (64 rows a block, four warps of 16,
+// a warp's 16 x S tiles in registers, one operand of the head in shared
+// memory at a time):
+//   pass 1, grid (sequence, head, query tile): dP = g.V^T with V staged, then
+//           s = q.K^T with K staged in its place; P, the f32 row sums
+//           rowsum(dP * P) (written out, [B, H, S]), dS, and dq = dS.K;
+//   pass 2, grid (sequence, head, key tile): the transposed tiles P^T =
+//           exp(k.Q^T * scale - lse) with Q staged and dP^T = v.G^T with G
+//           staged, dS^T from pass 1's row sums, dv = P^T.G, then Q again
+//           for dk = dS^T.Q.
+// Bound: at the ViT train shape (b8, S = d = 160, 8 heads) the backward
+// reads qkv, g and the LSE and writes dqkv, ~46 MB in f32 (14 us at
+// 3.35 TB/s), for 5 products of 2*S*S*d per (sequence, head) = 2.1 GFLOP.
 
+#include "attention_core.cuh"
 #include "common.cuh"
 
 using um::bf16;
 
 namespace {
 
-constexpr int FA_THREADS = 256;
-constexpr int FA_WARPS = FA_THREADS / 32;
-constexpr int FA_MAX_S = 160;  // the ViT's 160 tokens is the longest user
-constexpr int FA_MAX_D = 160;  // the ViT's 1280 / 8 heads
-constexpr int FA_T = FA_MAX_S / 32;
+using um::ATT_THREADS;
+using um::ATT_TILE;
 
-// rounds a float32 to the precision of T (the casts of the dtype contract)
 template <typename T> __device__ __forceinline__ float rnd(float v);
 template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
 template <> __device__ __forceinline__ float rnd<bf16>(float v) { return um::round_bf16(v); }
 
-// dst[j * ld + c] = src[j * row + c] for j < S, c < d (float32)
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, size_t row, int S, int d,
-                                      int ld, float* dst) {
-  for (int e = threadIdx.x; e < S * d; e += blockDim.x) {
-    const int j = e / d, c = e - j * d;
-    dst[j * ld + c] = um::to_f32(src[j * row + c]);
-  }
-}
-
-__device__ __forceinline__ float dot(const float* a, const float* b, int d) {
-  float s = 0.f;
-  for (int c = 0; c < d; ++c) s = fmaf(a[c], b[c], s);
-  return s;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_forward_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse,
-                  int S, int C, int H, float scale) {
-  extern __shared__ float smem[];
-  const int seq = blockIdx.x, h = blockIdx.y;
-  const int d = C / H, ld = d | 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* Ks = smem;
-  float* Vs = Ks + S * ld;
-  float* Qw = Vs + S * ld + warp * (d + S);  // this warp's query row
-  float* Pw = Qw + d;                        // this warp's probabilities
-
-  const size_t row3 = 3 * (size_t)C;
+// pass 1: per query row i, rowsum_i = sum_j dP_ij P_ij, dS, dq_i = dS_i . K
+template <int NT, typename T>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+fa_bwd_query_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
+                    const T* __restrict__ gout, T* __restrict__ dqkv,
+                    float* __restrict__ rowsum, int S, int C, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const Bs = reinterpret_cast<T*>(smem_raw);
+  const int seq = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * ATT_TILE;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
+  const int d = C / H, dk = um::pad_d(d), Sp = 8 * NT;
+  const int ld = um::smem_ld<T>(dk);
+  const size_t row3 = 3 * (size_t)C, bh = (size_t)seq * H + h;
   const T* base = qkv + (size_t)seq * S * row3 + (size_t)h * d;
-  stage(base + C, row3, S, d, ld, Ks);
-  stage(base + 2 * C, row3, S, d, ld, Vs);
-  __syncthreads();
+  const T* gb = gout + (size_t)seq * S * C + (size_t)h * d;
+  const bool vec = um::stage_vec(base, row3, d);
 
-  for (int i = warp; i < S; i += FA_WARPS) {
-    for (int c = lane; c < d; c += 32) Qw[c] = um::to_f32(base[i * row3 + c]);
-    __syncwarp();
-    float sc[FA_T];
-    float mx = -INFINITY;
+  const int rw = q0 + warp * 16;
+  const bool active = rw < S;
+  const int r0 = rw + g, r1 = r0 + 8;
+  float dp[NT][4], s[NT][4];
 #pragma unroll
-    for (int t = 0; t < FA_T; ++t) {
-      const int j = lane + 32 * t;
-      sc[t] = j < S ? dot(Qw, Ks + j * ld, d) * scale : -INFINITY;
-      mx = fmaxf(mx, sc[t]);
-    }
-    mx = um::warp_max(mx);
-    float sum = 0.f;
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int t = 0; t < FA_T; ++t) {
-      sc[t] = (lane + 32 * t < S) ? expf(sc[t] - mx) : 0.f;
-      sum += sc[t];
-    }
-    sum = um::warp_sum(sum);
-    if (lane == 0) lse[((size_t)seq * H + h) * S + i] = mx + logf(sum);
+    for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] = 0.f;
+
+  um::stage(Bs, ld, base + 2 * C, row3, S, d, Sp, dk, vec);  // V
+  um::cp_async_commit();
+  um::RowStream<T> a;
+  if (active)
+    a.start(r0 < S ? gb + (size_t)r0 * C : nullptr, r1 < S ? gb + (size_t)r1 * C : nullptr, d);
+  um::cp_async_wait();
+  __syncthreads();
+  if (active) a.template run<NT>(dp, 1.f, Bs, ld);  // dP = g . V^T
+  __syncthreads();
+  um::stage(Bs, ld, base + C, row3, S, d, Sp, dk, vec);  // K
+  um::cp_async_commit();
+  if (active)
+    a.start(r0 < S ? base + r0 * row3 : nullptr, r1 < S ? base + r1 * row3 : nullptr, d);
+  um::cp_async_wait();
+  __syncthreads();
+  if (!active) return;
+  a.template run<NT>(s, 1.f, Bs, ld);  // s = q . K^T
+
+  const float L0 = r0 < S ? lse[bh * S + r0] : 0.f, L1 = r1 < S ? lse[bh * S + r1] : 0.f;
+  float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int t = 0; t < FA_T; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) Pw[j] = rnd<T>(sc[t] / sum);
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = 8 * j + 2 * t + e < S;
+      s[j][e] = ok ? expf(s[j][e] * scale - L0) : 0.f;
+      s[j][2 + e] = ok ? expf(s[j][2 + e] * scale - L1) : 0.f;
+      rs0 += dp[j][e] * s[j][e];
+      rs1 += dp[j][2 + e] * s[j][2 + e];
     }
-    __syncwarp();
-    T* orow = out + ((size_t)seq * S + i) * C + (size_t)h * d;
-    for (int c = lane; c < d; c += 32) {
-      float a = 0.f;
-      for (int j = 0; j < S; ++j) a = fmaf(Pw[j], Vs[j * ld + c], a);
-      orow[c] = um::from_f32<T>(a);
-    }
-    __syncwarp();
   }
+  rs0 = um::quad_sum(rs0);
+  rs1 = um::quad_sum(rs1);
+  if (t == 0) {
+    if (r0 < S) rowsum[bh * S + r0] = rs0;
+    if (r1 < S) rowsum[bh * S + r1] = rs1;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dp[j][e] = rnd<T>(s[j][e] * (dp[j][e] - rs0) * scale);
+      dp[j][2 + e] = rnd<T>(s[j][2 + e] * (dp[j][2 + e] - rs1) * scale);
+    }
+  }
+  T* d0 = r0 < S ? dqkv + (size_t)seq * S * row3 + r0 * row3 + (size_t)h * d : nullptr;
+  T* d1 = r1 < S ? dqkv + (size_t)seq * S * row3 + r1 * row3 + (size_t)h * d : nullptr;
+  um::cols_product<NT, false>(dp, Bs, ld, d, d0, d1, d % 2 == 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS)
-fa_backward_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
-                   const T* __restrict__ g, T* __restrict__ dqkv,
-                   float* __restrict__ scratch, int S, int C, int H, float scale) {
-  extern __shared__ float smem[];
-  const int seq = blockIdx.x, h = blockIdx.y;
-  const int d = C / H, ld = d | 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* As = smem;        // phase 1: K, phase 2: Q
-  float* Bs = As + S * ld; // phase 1: V, phase 2: G
-  float* Qw = Bs + S * ld + warp * (2 * d + 2 * S);  // per warp: a q row,
-  float* Gw = Qw + d;                                 // a g row,
-  float* Dw = Gw + d;                                 // a dS row / column,
-  float* Pw = Dw + S;                                 // a P column
-
-  const size_t bh = (size_t)seq * H + h;
-  float* PT = scratch + bh * S * S;                          // P^T  [j][i]
-  float* DT = scratch + ((size_t)gridDim.x * H + bh) * S * S; // dS^T [j][i]
-  const size_t row3 = 3 * (size_t)C;
+// pass 2: per key row j, dv_j = cast(P)^T_j . G and dk_j = dS^T_j . Q, over
+// all query rows i (the columns of the transposed tiles)
+template <int NT, typename T>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+fa_bwd_key_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
+                  const T* __restrict__ gout, const float* __restrict__ rowsum,
+                  T* __restrict__ dqkv, int S, int C, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const Bs = reinterpret_cast<T*>(smem_raw);
+  const int seq = blockIdx.x, h = blockIdx.y, k0 = blockIdx.z * ATT_TILE;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
+  const int d = C / H, dk = um::pad_d(d), Sp = 8 * NT;
+  const int ld = um::smem_ld<T>(dk);
+  const size_t row3 = 3 * (size_t)C, bh = (size_t)seq * H + h;
   const T* base = qkv + (size_t)seq * S * row3 + (size_t)h * d;
-  const T* gbase = g + (size_t)seq * S * C + (size_t)h * d;
-  T* dbase = dqkv + (size_t)seq * S * row3 + (size_t)h * d;
+  const T* gb = gout + (size_t)seq * S * C + (size_t)h * d;
+  const bool vec = um::stage_vec(base, row3, d), gvec = um::stage_vec(gb, (size_t)C, d);
+  float* const Ls = reinterpret_cast<float*>(smem_raw + (size_t)Sp * ld * sizeof(T));
+  float* const Rs = Ls + Sp;  // the row statistics of every query
 
-  // phase 1: per query row i, P and dS; dq_i = dS_i . K
-  stage(base + C, row3, S, d, ld, As);
-  stage(base + 2 * C, row3, S, d, ld, Bs);
-  __syncthreads();
-  for (int i = warp; i < S; i += FA_WARPS) {
-    for (int c = lane; c < d; c += 32) {
-      Qw[c] = um::to_f32(base[i * row3 + c]);
-      Gw[c] = um::to_f32(gbase[(size_t)i * C + c]);
-    }
-    __syncwarp();
-    const float L = lse[bh * S + i];
-    float p[FA_T], dp[FA_T];
-    float rsum = 0.f;
+  const int jw = k0 + warp * 16;
+  const bool active = jw < S;
+  const int j0 = jw + g, j1 = j0 + 8;
+  float pt[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int t = 0; t < FA_T; ++t) {
-      const int j = lane + 32 * t;
-      p[t] = 0.f;
-      dp[t] = 0.f;
-      if (j < S) {
-        p[t] = expf(dot(Qw, As + j * ld, d) * scale - L);
-        dp[t] = dot(Gw, Bs + j * ld, d);
-      }
-      rsum += dp[t] * p[t];
-    }
-    rsum = um::warp_sum(rsum);
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int t = 0; t < FA_T; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) {
-        const float ds = rnd<T>(p[t] * (dp[t] - rsum) * scale);
-        Dw[j] = ds;
-        DT[(size_t)j * S + i] = ds;
-        PT[(size_t)j * S + i] = rnd<T>(p[t]);
+    for (int e = 0; e < 4; ++e) pt[j][e] = dpt[j][e] = 0.f;
+
+  um::stage(Bs, ld, base, row3, S, d, Sp, dk, vec);  // Q
+  um::cp_async_commit();
+  for (int i = threadIdx.x; i < Sp; i += ATT_THREADS) {
+    Ls[i] = i < S ? lse[bh * S + i] : 0.f;
+    Rs[i] = i < S ? rowsum[bh * S + i] : 0.f;
+  }
+  um::RowStream<T> a;
+  if (active)
+    a.start(j0 < S ? base + C + j0 * row3 : nullptr, j1 < S ? base + C + j1 * row3 : nullptr,
+            d);
+  um::cp_async_wait();
+  __syncthreads();
+  if (active) {
+    a.template run<NT>(pt, 1.f, Bs, ld);  // k . Q^T
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * j + 2 * t + e;
+        const bool ok = i < S;
+        pt[j][e] = ok ? expf(pt[j][e] * scale - Ls[i]) : 0.f;
+        pt[j][2 + e] = ok ? expf(pt[j][2 + e] * scale - Ls[i]) : 0.f;
       }
     }
-    __syncwarp();
-    for (int c = lane; c < d; c += 32) {
-      float a = 0.f;
-      for (int j = 0; j < S; ++j) a = fmaf(Dw[j], As[j * ld + c], a);
-      dbase[i * row3 + c] = um::from_f32<T>(a);
-    }
-    __syncwarp();
   }
-  // every row's P^T and dS^T is written (the barrier orders device-memory
-  // accesses within the block too) and K, V are no longer needed
   __syncthreads();
-
-  // phase 2: per key row j, dk_j = dS^T_j . Q and dv_j = P^T_j . G
-  stage(base, row3, S, d, ld, As);
-  stage(gbase, (size_t)C, S, d, ld, Bs);
+  um::stage(Bs, ld, gb, (size_t)C, S, d, Sp, dk, gvec);  // G
+  um::cp_async_commit();
+  if (active)
+    a.start(j0 < S ? base + 2 * C + j0 * row3 : nullptr,
+            j1 < S ? base + 2 * C + j1 * row3 : nullptr, d);
+  um::cp_async_wait();
   __syncthreads();
-  for (int j = warp; j < S; j += FA_WARPS) {
-    for (int i = lane; i < S; i += 32) {
-      Dw[i] = DT[(size_t)j * S + i];
-      Pw[i] = PT[(size_t)j * S + i];
-    }
-    __syncwarp();
-    for (int c = lane; c < d; c += 32) {
-      float dk = 0.f, dv = 0.f;
-      for (int i = 0; i < S; ++i) {
-        dk = fmaf(Dw[i], As[i * ld + c], dk);
-        dv = fmaf(Pw[i], Bs[i * ld + c], dv);
+  T* dk0 = j0 < S ? dqkv + (size_t)seq * S * row3 + j0 * row3 + (size_t)h * d : nullptr;
+  T* dk1 = j1 < S ? dqkv + (size_t)seq * S * row3 + j1 * row3 + (size_t)h * d : nullptr;
+  const bool pair = d % 2 == 0;
+  if (active) {
+    a.template run<NT>(dpt, 1.f, Bs, ld);  // v . G^T
+    // dv = cast(P)^T . G (a bf16 product rounds P as it packs it)
+    um::cols_product<NT, false>(pt, Bs, ld, d, dk0 ? dk0 + 2 * C : nullptr,
+                             dk1 ? dk1 + 2 * C : nullptr, pair);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * j + 2 * t + e;
+        const float R = i < S ? Rs[i] : 0.f;  // P^T is 0 past S
+        dpt[j][e] = rnd<T>(pt[j][e] * (dpt[j][e] - R) * scale);
+        dpt[j][2 + e] = rnd<T>(pt[j][2 + e] * (dpt[j][2 + e] - R) * scale);
       }
-      dbase[j * row3 + C + c] = um::from_f32<T>(dk);
-      dbase[j * row3 + 2 * C + c] = um::from_f32<T>(dv);
     }
-    __syncwarp();
   }
-}
-
-bool bad_shape(int B, int S, int C, int H) {
-  return B <= 0 || H <= 0 || S <= 0 || C % H || S > FA_MAX_S || C / H > FA_MAX_D;
+  __syncthreads();
+  um::stage(Bs, ld, base, row3, S, d, Sp, dk, vec);  // Q again
+  um::cp_async_commit();
+  um::cp_async_wait();
+  __syncthreads();
+  if (!active) return;
+  um::cols_product<NT, false>(dpt, Bs, ld, d, dk0 ? dk0 + C : nullptr,
+                           dk1 ? dk1 + C : nullptr, pair);
 }
 
 template <typename T>
 int launch_forward(const void* qkv, void* out, float* lse, int B, int S, int C, int H,
                    float scale, cudaStream_t stream) {
-  const int d = C / H, ld = d | 1;
-  const size_t smem = (size_t)(2 * S * ld + FA_WARPS * (d + S)) * sizeof(float);
-  auto kern = fa_forward_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B, H), FA_THREADS, smem, stream>>>((const T*)qkv, (T*)out, lse, S, C, H,
-                                                 scale);
-  return (int)cudaGetLastError();
+  return um::launch_attention_fwd<T, std::is_same<T, bf16>::value, T>(
+      (const T*)qkv, nullptr, (T*)out, lse, B, S, C, H, 1, scale, false, stream);
+}
+
+template <int NT, typename T>
+int launch_backward_nt(const T* qkv, const float* lse, const T* g, T* dqkv, float* rowsum,
+                       int B, int S, int C, int H, float scale, cudaStream_t stream) {
+  const dim3 grid(B, H, (S + ATT_TILE - 1) / ATT_TILE);
+  const size_t smem = um::att_smem<T>(S, C / H);
+  int rc = um::att_launch(fa_bwd_query_kernel<NT, T>, grid, smem, stream, qkv, lse, g, dqkv,
+                          rowsum, S, C, H, scale);
+  if (rc) return rc;
+  return um::att_launch(fa_bwd_key_kernel<NT, T>, grid,
+                        um::att_smem<T>(S, C / H, 2 * 8 * NT * sizeof(float)),
+                        stream, qkv, lse, g, (const float*)rowsum, dqkv, S, C, H, scale);
 }
 
 template <typename T>
 int launch_backward(const void* qkv, const float* lse, const void* g, void* dqkv,
-                    float* scratch, int B, int S, int C, int H, float scale,
+                    float* rowsum, int B, int S, int C, int H, float scale,
                     cudaStream_t stream) {
-  const int d = C / H, ld = d | 1;
-  const size_t smem = (size_t)(2 * S * ld + FA_WARPS * (2 * d + 2 * S)) * sizeof(float);
-  auto kern = fa_backward_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(B, H), FA_THREADS, smem, stream>>>((const T*)qkv, lse, (const T*)g,
-                                                 (T*)dqkv, scratch, S, C, H, scale);
-  return (int)cudaGetLastError();
+  const int nt = um::att_tiles(S);
+#define UM_BWD(NT)                                                                         \
+  launch_backward_nt<NT, T>((const T*)qkv, lse, (const T*)g, (T*)dqkv, rowsum, B, S, C, H, \
+                            scale, stream)
+  const int rc = nt == 4 ? UM_BWD(4) : nt == 10 ? UM_BWD(10) : UM_BWD(20);
+#undef UM_BWD
+  return rc;
 }
 
 }  // namespace
@@ -262,22 +257,23 @@ extern "C" {
 // bf16 if is_bf16, else float32.
 int flash_attention_fwd(const void* qkv, int is_bf16, void* out, float* lse, int B, int S,
                         int C, int H, float scale, void* stream) {
-  if (bad_shape(B, S, C, H)) return (int)cudaErrorInvalidValue;
+  if (um::att_bad_shape(B, S, C, H)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch_forward<bf16>(qkv, out, lse, B, S, C, H, scale, (cudaStream_t)stream);
   return launch_forward<float>(qkv, out, lse, B, S, C, H, scale, (cudaStream_t)stream);
 }
 
 // dqkv [B*S, 3C] from qkv, lse and the context gradient g [B*S, C] (qkv's
-// type); scratch is float32 [2, B, H, S, S].
+// type); rowsum is float32 [B, H, S], pass 1's row sums rowsum(dP * P)
+// (written, then read by pass 2).
 int flash_attention_bwd(const void* qkv, const float* lse, const void* g, int is_bf16,
-                        void* dqkv, float* scratch, int B, int S, int C, int H,
-                        float scale, void* stream) {
-  if (bad_shape(B, S, C, H)) return (int)cudaErrorInvalidValue;
+                        void* dqkv, float* rowsum, int B, int S, int C, int H, float scale,
+                        void* stream) {
+  if (um::att_bad_shape(B, S, C, H)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return launch_backward<bf16>(qkv, lse, g, dqkv, scratch, B, S, C, H, scale,
+    return launch_backward<bf16>(qkv, lse, g, dqkv, rowsum, B, S, C, H, scale,
                                  (cudaStream_t)stream);
-  return launch_backward<float>(qkv, lse, g, dqkv, scratch, B, S, C, H, scale,
+  return launch_backward<float>(qkv, lse, g, dqkv, rowsum, B, S, C, H, scale,
                                 (cudaStream_t)stream);
 }
 

@@ -210,8 +210,9 @@ int tb_linear(const void* A, const void* W, const float* bias, const void* res,
 // and V rounded to bf16; qkv is the f32 [B*S, 3C] projection.
 int tb_attention_core(const float* qkv, void* out, int B, int S, int C, int H,
                       float scale, void* stream) {
-  return um::launch_attention_core<bf16, true>(qkv, nullptr, (bf16*)out, B, S, C, H, 1,
-                                               scale, (cudaStream_t)stream);
+  return um::launch_attention_fwd<float, true, bf16>(qkv, nullptr, (bf16*)out, nullptr, B, S,
+                                                     C, H, 1, scale, true,
+                                                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

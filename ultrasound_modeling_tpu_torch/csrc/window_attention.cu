@@ -12,8 +12,8 @@
 //   additive matrix built in the wrapper from the bias table, rel_index and
 //   the mask) -> GEMM(proj, +b, f32).
 // The TPU kernel's -1e9 block-diagonal packing of T windows into one MXU
-// matmul (:116-140) is a Mosaic artifact and is dropped: one CUDA block owns
-// one (window, head).
+// matmul (:116-140) is a Mosaic artifact and is dropped: the core
+// (attention_core.cuh) runs a block per (window, head, 64 query rows).
 //
 // Bound: the f32 GEMMs (2*M*C*4C = 10.7 GFLOP per layer at batch 64) run on
 // the SIMT float32 units (67 TFLOP/s peak; TF32 tensor cores would break the
@@ -134,8 +134,9 @@ int wa_linear(const void* A, const void* W, const float* bias, const void* res,
 // addmask A [nW, H, S, S] may be null.
 int wa_attention_core(const float* qkv, const float* addmask, float* out, int B, int S,
                       int C, int H, int nW, float scale, void* stream) {
-  return um::launch_attention_core<float, false>(qkv, addmask, out, B, S, C, H, nW, scale,
-                                                 (cudaStream_t)stream);
+  return um::launch_attention_fwd<float, false, float>(qkv, addmask, out, nullptr, B, S, C,
+                                                       H, nW, scale, true,
+                                                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

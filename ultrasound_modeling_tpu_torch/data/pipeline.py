@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ultrasound_modeling_tpu_torch.data import synthetic
+from ultrasound_modeling_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
 
 def load_npy_pair(path: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -28,10 +29,13 @@ def load_npy_pair(path: str) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class Dataset:
-    """Train and test arrays on ``device`` with the reference's cursors."""
+    """Train and test arrays on ``device`` (the card unless the caller asks
+    for the CPU) with the reference's cursors."""
 
     def __init__(self, x_tr, y_tr, x_te, y_te, num_classes: int = 3,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
+        device = resolve_device(device)
+
         def put(a):
             return torch.as_tensor(np.ascontiguousarray(a, np.float32)).to(device)
 
@@ -47,14 +51,16 @@ class Dataset:
 
     @classmethod
     def from_npy(cls, train_path: str, val_path: str, num_classes: int = 3,
-                 device="cpu") -> "Dataset":
+                 device=DEFAULT_DEVICE) -> "Dataset":
+        device = resolve_device(device)
         return cls(*load_npy_pair(train_path), *load_npy_pair(val_path),
                    num_classes, device)
 
     @classmethod
     def synthetic(cls, n_train: int = 32, n_test: int = 8, seed: int = 0,
                   height: int = 256, width: int = 80, n_disp: int = 10,
-                  num_classes: int = 3, device="cpu") -> "Dataset":
+                  num_classes: int = 3, device=DEFAULT_DEVICE) -> "Dataset":
+        device = resolve_device(device)
         raw_tr = synthetic.make_raw_array(n_train, seed, height, width, n_disp)
         raw_te = synthetic.make_raw_array(n_test, seed + 1, height, width,
                                           n_disp)

@@ -1,14 +1,14 @@
 """Model zoo keyed by config name (PyTorch port of ``models/registry.py``).
 
-Takes the JAX package's ``ModelConfig`` (``ultrasound_modeling_tpu.config``,
-shared: it imports no jax).  ``transunet`` and ``vit`` are ported so far.
+Takes the port's ``ModelConfig`` (``config.py``, a copy of the JAX
+package's).  ``transunet`` and ``vit`` are ported so far.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ultrasound_modeling_tpu.config import ModelConfig
+from ultrasound_modeling_tpu_torch.config import ModelConfig
 
 # the other families and the ROADMAP item that ports each
 _NOT_YET = {

@@ -746,10 +746,9 @@ def flash_attention_bwd(qkv2: torch.Tensor, lse: torch.Tensor,
     if not _on_cuda(qkv2, lse, g2):
         return flash_attention_bwd_plain(qkv2, lse, g2, seq, num_heads, scale)
     dqkv = torch.empty_like(qkv2)
-    scratch = torch.empty((2, b, num_heads, seq, seq), dtype=_F32,
-                          device=qkv2.device)
+    rowsum = torch.empty((b, num_heads, seq), dtype=_F32, device=qkv2.device)
     _launch(build().flash_attention_bwd, _ptr(qkv2), _ptr(lse), _ptr(g2),
-            int(qkv2.dtype == _BF16), _ptr(dqkv), _ptr(scratch), b, seq, c,
+            int(qkv2.dtype == _BF16), _ptr(dqkv), _ptr(rowsum), b, seq, c,
             num_heads, float(scale), _stream())
     return dqkv
 

@@ -9,8 +9,8 @@ drivers' semantics:
 * training stops once the learning rate falls below ``lr_floor``;
 * a loss equal to the previous epoch's is flagged ``loss_stagnant``
   (``MainNumpy.py:76-79``);
-* scalars go through the JAX package's ``utils/logging.MetricLogger``
-  (stdlib + numpy, shared as it is).
+* scalars go through ``utils/logging.MetricLogger``, the port's copy of
+  the JAX package's.
 
 The loss adds the L2 kernel penalty where the config sets one (the ViT).
 Left out (ROADMAP Queue 1): decoupled weight decay and the bf16 Adam first
@@ -27,20 +27,21 @@ from typing import Dict, Optional
 
 import torch
 
-from ultrasound_modeling_tpu.config import Config
-from ultrasound_modeling_tpu.utils.logging import MetricLogger
+from ultrasound_modeling_tpu_torch.config import Config
 from ultrasound_modeling_tpu_torch.data.pipeline import Dataset
+from ultrasound_modeling_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ultrasound_modeling_tpu_torch.models.registry import build_model
 from ultrasound_modeling_tpu_torch.train import losses, metrics, optim
 from ultrasound_modeling_tpu_torch.train import step as step_mod
+from ultrasound_modeling_tpu_torch.utils.logging import MetricLogger
 
 
 class Trainer:
-    def __init__(self, cfg: Config, dataset: Dataset, device="cpu",
+    def __init__(self, cfg: Config, dataset: Dataset, device=DEFAULT_DEVICE,
                  logger: Optional[MetricLogger] = None):
         self.cfg = cfg
         self.dataset = dataset
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         tc = cfg.train
         if tc.weight_decay or tc.adam_mu_dtype is not None:
             raise NotImplementedError(
