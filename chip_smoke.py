@@ -9,10 +9,12 @@ CUDA toolkit:
 Phases (each checks its results; any failure exits non-zero):
 
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
-   for each function of the attention kernels redesigned for the tensor
-   cores (the forward core and both passes of K3's backward) print ptxas's
-   registers, spills and shared memory and the count of HMMA / HGMMA
-   instructions in its SASS (``cuobjdump -sass``), which must not be 0;
+   for each function of the kernels built on the tensor cores (the
+   attention forward core, both passes of K3's backward, and the wgmma GEMM
+   behind ``tb_linear`` and ``wa_linear``) print ptxas's registers, spills
+   and shared memory and the count of HMMA / HGMMA instructions in its SASS
+   (``cuobjdump -sass``), which must not be 0 (the GEMM's bf16 and f32
+   builds both);
 2. hold every CUDA kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with medians of kernel and plain
    times, the kernel's bound (the larger of its bytes over 3.35 TB/s and
@@ -31,7 +33,10 @@ Phases (each checks its results; any failure exits non-zero):
    the TransUNet (b32, N 80, C 512) and ViT (b8, N 160, C 1280) train
    shapes; K5's forward (out, saved qkv and P; f32 and bf16) at the ViT
    (b8) and TransUNet (b32) train shapes and its core at b8; K6 on [32,
-   256, 80] labels;
+   256, 80] labels; ``tb_linear`` and ``wa_linear`` at the ViT serving
+   shapes (b64: qkv, proj, fc1, fc2) and the K5 ViT train shape (b8),
+   beside ``F.linear`` on the same operands, and the host's time to enqueue
+   one ``linear`` call (two TMA descriptors encoded per launch);
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
@@ -240,13 +245,18 @@ def f32_tol(want):
     return 1e-4 * max(1.0, want.abs().max().item())
 
 
-# the kernel functions of the attention kernels built on the tensor cores
+# the kernel functions built on the tensor cores: the attention kernels and
+# the GEMM of tb_linear (bf16) and wa_linear (f32)
 TENSOR_CORE_KERNELS = ("attention_fwd_kernel", "fa_bwd_query_kernel",
-                       "fa_bwd_key_kernel")
+                       "fa_bwd_key_kernel", "linear_wgmma_kernel")
+# each operand type the GEMM is built for must hold wgmma (HGMMA); the
+# names demangled or not
+GEMM_BUILDS = {"bf16": r"linear_wgmma_kernel(<|I13)__nv_bfloat16",
+               "f32": r"linear_wgmma_kernel(<float|If)"}
 
 
 def kernel_report(K):
-    """Per kernel function of the redesigned attention kernels: registers,
+    """Per kernel function of the tensor-core kernels: registers,
     stack and static shared memory (``cuobjdump -res-usage``), bytes
     spilled (ptxas -v in the build log, when this process built the
     libraries) and the tensor-core MMA instructions in its SASS
@@ -311,8 +321,8 @@ def kernel_report(K):
 
 
 def phase_tensor_cores(K) -> None:
-    """Phase 1's report of the redesigned kernels; each must hold
-    tensor-core MMAs."""
+    """Phase 1's report of the tensor-core kernels; each must hold
+    tensor-core MMAs, and each build of the GEMM wgmma."""
     import torch
     rows = kernel_report(K)
     log("  tensor-core kernels (ptxas -v; MMA instructions in the SASS):")
@@ -323,6 +333,10 @@ def phase_tensor_cores(K) -> None:
         found = [r for r in rows if kern in r[0]]
         require(found and all(r[4] > 0 for r in found),
                 f"{kern}: no tensor-core MMA in its SASS: {found}")
+    for build, pattern in GEMM_BUILDS.items():
+        found = [r for r in rows if re.search(pattern, r[0])]
+        require(found and all(r[4] > 0 for r in found),
+                f"{build} GEMM: no build, or no HGMMA in its SASS: {found}")
 
 
 def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
@@ -736,6 +750,77 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
                        ops=elementwise(lab.numel(), 6),
                        library_text="no one call maps a label to the smoothed "
                                     "3-class vector")
+
+
+def phase_gemm(checks: Checks, dev, seed: int) -> None:
+    """``tb_linear`` and ``wa_linear`` at the ViT's shapes: serving b64 (M
+    10240; K1's four products in bf16, K4's two in f32) and the K5 train
+    shape b8 (M 1280), against their plain versions, each beside
+    ``F.linear`` on the same operands; then the host's time to enqueue one
+    call."""
+    import torch
+    import torch.nn.functional as F
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 13)
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    log("phase 2 (GEMMs): tb_linear / wa_linear at the ViT shapes")
+    c, mlp = 1280, 2048
+    # (label, M, N, K, operand dtype, GELU, residual dtype, output dtype)
+    rows = [("K1 ViT b64 qkv", 10240, 3 * c, c, bf, False, None, f32),
+            ("K1 ViT b64 proj +res", 10240, c, c, bf, False, f32, f32),
+            ("K1 ViT b64 fc1 GELU", 10240, mlp, c, bf, True, None, bf),
+            ("K1 ViT b64 fc2 +res", 10240, c, mlp, bf, False, f32, bf),
+            ("K4 ViT b64 qkv", 10240, 3 * c, c, f32, False, None, f32),
+            ("K4 ViT b64 proj", 10240, c, c, f32, False, None, f32),
+            ("K5 ViT b8 qkv", 1280, 3 * c, c, bf, False, None, f32),
+            ("K5 ViT b8 proj", 1280, c, c, bf, False, None, bf),
+            ("K5 ViT b8 qkv", 1280, 3 * c, c, f32, False, None, f32),
+            ("K5 ViT b8 proj", 1280, c, c, f32, False, None, f32)]
+    for label, m, n, k, dt, gelu, res_dt, out_dt in rows:
+        a = rand(m, k, dtype=dt)
+        w = rand(n, k, scale=k ** -0.5, dtype=dt)
+        b = rand(n, scale=0.1)
+        r = None if res_dt is None else rand(m, n, dtype=res_dt)
+        b_dt = b.to(dt)
+        name = "tb_linear" if dt == bf else "wa_linear"
+        tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if out_dt == f32
+                     else (bf16_quanta(2), "2 bf16 quanta"))
+        if gelu or r is not None or out_dt != dt:
+            lib_text = (f"F.linear {'bf16' if dt == bf else 'f32'} alone, without "
+                        f"the fused epilogue")
+        else:
+            lib_text = f"F.linear {'bf16' if dt == bf else 'f32, TF32 off'}"
+        checks.compare(name, f"{label} {m}x{n}x{k} ->{'bf16' if out_dt == bf else 'f32'}",
+                       lambda: K.linear(a, w, b, gelu=gelu, residual=r, out_dtype=out_dt),
+                       lambda: K.linear_plain(a, w, b, gelu=gelu, residual=r,
+                                              out_dtype=out_dt),
+                       tol, text, inputs=(a, w, b, r),
+                       ops=mm(m, n, k, PEAK_BF16 if dt == bf else PEAK_F32_MM),
+                       library=lambda: F.linear(a, w, b_dt), library_text=lib_text)
+        del a, w, r
+    # the host's share of a launch: wrapper checks, two tensor maps encoded
+    # (cuTensorMapEncodeTiled), the launch; a tiny product, so the queue
+    # never fills
+    a, w, b = rand(128, 64, dtype=bf), rand(128, 64, dtype=bf), rand(128)
+    b_bf = b.to(bf)
+    host = {}
+    for what, fn in (("K.linear", lambda: K.linear(a, w, b)),
+                     ("F.linear", lambda: F.linear(a, w, b_bf))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        host[what] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    log(f"  host time to enqueue one call (128x128x64 bf16, mean of 500): "
+        f"K.linear {host['K.linear']:.1f} us, F.linear {host['F.linear']:.1f} us")
 
 
 def seeded_model(family: str, seed: int, dtype: str = "f32",
@@ -1178,6 +1263,7 @@ def main(argv=None) -> int:
         phase_kernels(checks, dev, args.seed)
         phase_train_kernels(checks, dev, args.seed)
         phase_vit_kernels(checks, dev, args.seed)
+        phase_gemm(checks, dev, args.seed)
         with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
             for family, phase in (("transunet", "3"), ("vit", "3b")):
                 x, ref, flat = phase_forward(dev, args.seed, BATCH, family, phase)

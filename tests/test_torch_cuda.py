@@ -29,22 +29,48 @@ def _rand(g, dev, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
 
+# (M, N, K): a TransUNet qkv slice, a ragged one, M and N one below, at and
+# one above the 128 x 128 output tile with K off the k-block (64 bf16, 32
+# f32), and the Swin projection (K 96, N 288)
+LINEAR_SHAPES = [(160, 1536, 512), (77, 72, 40), (127, 129, 72), (128, 128, 64),
+                 (129, 127, 136), (160, 288, 96)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(160, 1536, 512), (77, 72, 40)])
+@pytest.mark.parametrize("m,n,k", LINEAR_SHAPES)
 @pytest.mark.parametrize("dtype", [BF, torch.float32])
 @pytest.mark.parametrize("res_dtype", [None, torch.float32, BF])
 def test_linear_matches_plain(cuda, m, n, k, dtype, res_dtype):
-    """Ragged (77, 72, 40) exercises every bound check of both GEMMs."""
+    """Every epilogue option of both GEMMs at the tile edges: ragged M, N
+    and K exercise TMA's zero fill and the epilogue's scalar tail."""
     g = torch.Generator().manual_seed(0)
     a = _rand(g, cuda, m, k, dtype=dtype)
     w = _rand(g, cuda, n, k, scale=k ** -0.5, dtype=dtype)
     b = _rand(g, cuda, n)
     r = None if res_dtype is None else _rand(g, cuda, m, n, dtype=res_dtype)
     for out_dtype in (torch.float32, BF):
-        got = K.linear(a, w, b, gelu=True, residual=r, out_dtype=out_dtype)
-        want = K.linear_plain(a, w, b, gelu=True, residual=r, out_dtype=out_dtype)
-        tol = 1e-4 if out_dtype == torch.float32 else 2 ** -7
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        for bias, gelu in ((b, True), (None, False)):
+            got = K.linear(a, w, bias, gelu=gelu, residual=r, out_dtype=out_dtype)
+            want = K.linear_plain(a, w, bias, gelu=gelu, residual=r,
+                                  out_dtype=out_dtype)
+            tol = 1e-4 if out_dtype == torch.float32 else 2 ** -7
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.cuda
+def test_linear_f32_holds_the_f32_contract_at_vit_depth(cuda):
+    """wa_linear (3xTF32) at the ViT's longest K (fc2's 2048) against a
+    float64 product: within 1e-5 of max|out|, where plain TF32 would miss
+    by two orders."""
+    g = torch.Generator().manual_seed(11)
+    a = _rand(g, cuda, 256, 2048)
+    w = _rand(g, cuda, 1280, 2048, scale=2048 ** -0.5)
+    b = _rand(g, cuda, 1280)
+    got = K.linear(a, w, b)
+    want = a.double() @ w.double().t() + b.double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -17,19 +17,16 @@
 //
 // Bound: at batch 64 (M = 5120 rows) the four GEMMs are 2*M*C*(3C+C+2*4C)
 // = 32 GFLOP per layer against ~0.1 GB of activation and weight traffic, so
-// the GEMMs are compute-bound and everything else is a small memory-bound
-// pass.
-// This first version tiles the GEMM for the tensor cores with WMMA
-// (16x16x16 bf16 fragments, f32 accumulators), a 64x128x32 block tile,
-// cp.async double buffering, and the bias/GELU/residual epilogue fused
-// into the store; wgmma/TMA are left for later work.
-
-#include <mma.h>
+// the GEMMs are compute-bound (989 TFLOP/s bf16: 33 us a layer) and
+// everything else is a small memory-bound pass.  The GEMM (tb_linear) is
+// gemm_sm90.cuh's wgmma kernel on bf16 operands: TMA-fed 128x128x64 tiles in
+// a 3-stage mbarrier ring, two blocks an SM, the bias/GELU/residual epilogue
+// fused into 16-byte stores.
 
 #include "attention_core.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
-using namespace nvcuda;
 using um::bf16;
 
 namespace {
@@ -70,114 +67,12 @@ int launch_layer_norm(const void* x, const float* w, const float* b, void* y, in
   return (int)cudaGetLastError();
 }
 
-// ---- bf16 GEMM: out[M,N] = epilogue(A[M,K] . W[N,K]^T) ----
-
-constexpr int BM = 64, BN = 128, BK = 32, PADK = BK + 8;  // 80-byte smem rows
-constexpr int GEMM_THREADS = 128;                          // 2x2 warps, 32x64 each
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;  // src-size 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
-}
-
-template <typename TRes, typename TOut>
-__global__ void __launch_bounds__(GEMM_THREADS)
-linear_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                   const float* __restrict__ bias, const TRes* __restrict__ res,
-                   TOut* __restrict__ out, int M, int N, int K, int gelu) {
-  __shared__ __align__(128) bf16 As[2][BM][PADK];
-  __shared__ __align__(128) bf16 Ws[2][BN][PADK];
-  __shared__ __align__(128) float stage[GEMM_THREADS / 32][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bm = blockIdx.y * BM, bn = blockIdx.x * BN;
-  const int wm = warp >> 1, wn = warp & 1;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto load_tile = [&](int kt, int buf) {
-    const int k0 = kt * BK;
-    for (int c = tid; c < BM * BK / 8; c += GEMM_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gr = bm + r, gk = k0 + kc;
-      const bool ok = gr < M && gk < K;
-      cp_async16(&As[buf][r][kc], ok ? A + (size_t)gr * K + gk : A, ok);
-    }
-    for (int c = tid; c < BN * BK / 8; c += GEMM_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gr = bn + r, gk = k0 + kc;
-      const bool ok = gr < N && gk < K;
-      cp_async16(&Ws[buf][r][kc], ok ? W + (size_t)gr * K + gk : W, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  const int nk = (K + BK - 1) / BK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(kt + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[buf][wm * 32 + i * 16][kk], PADK);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], &Ws[buf][wn * 64 + j * 16][kk], PADK);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 accumulator tile at a time
-  float* st = stage[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = bm + wm * 32 + i * 16 + r;
-      if (row < M) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int col = bn + wn * 64 + j * 16 + c0 + t;
-          if (col < N) um::epilogue_store(st[r * 16 + c0 + t], row, col, N, bias, res, gelu, out);
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
 template <typename TRes, typename TOut>
 int launch_linear_bf16(const TRes* res, TOut* out, const bf16* A, const bf16* W,
                        const float* bias, int M, int N, int K, int gelu,
                        cudaStream_t stream) {
-  if (K % 8) return (int)cudaErrorInvalidValue;  // 16-byte cp.async chunks
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_bf16_kernel<TRes, TOut><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, res, out,
-                                                                    M, N, K, gelu);
-  return (int)cudaGetLastError();
+  return um::launch_linear_wgmma<bf16, TRes, TOut>(res, out, A, W, bias, M, N, K, gelu,
+                                                   stream);
 }
 
 }  // namespace

@@ -15,105 +15,27 @@
 // matmul (:116-140) is a Mosaic artifact and is dropped: the core
 // (attention_core.cuh) runs a block per (window, head, 64 query rows).
 //
-// Bound: the f32 GEMMs (2*M*C*4C = 10.7 GFLOP per layer at batch 64) run on
-// the SIMT float32 units (67 TFLOP/s peak; TF32 tensor cores would break the
-// f32 contract), so they are compute-bound.  The GEMM is the classic
-// register-blocked SGEMM: 128x128 block tile, 8-deep k steps double-buffered
-// in shared memory (the next step's float4 loads are in flight during the
-// FMAs), 8x8 outputs per thread as four 4x4 quadrants so that the float4
-// shared-memory reads are conflict-free, bias/GELU/residual epilogue fused
-// into the store.  Each output is a sequential-k chain of FMAs.
+// Bound: the f32 GEMMs (2*M*C*4C = 10.7 GFLOP per layer at batch 64) are
+// compute-bound.  They keep the f32 contract on the tensor cores with 3xTF32
+// (A_lo.W + A.W_lo + A.W, ~1e-6 relative; the fastest f32-accurate product
+// on the card: 495 / 3 = 165 TFLOP/s): wa_linear is gemm_sm90.cuh's wgmma
+// kernel on f32 operands, TMA-fed 128x128x32 tiles whose lo parts the
+// producer warpgroup writes beside them, the epilogue fused into the store.
 
 #include "attention_core.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using um::bf16;
 
 namespace {
 
-constexpr int FBM = 128, FBN = 128, FBK = 8, FTHREADS = 256;
-
-template <typename TRes, typename TOut>
-__global__ void __launch_bounds__(FTHREADS, 2)
-linear_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                  const float* __restrict__ bias, const TRes* __restrict__ res,
-                  TOut* __restrict__ out, int M, int N, int K, int gelu) {
-  __shared__ __align__(16) float As[2][FBK][FBM];  // k-major: As[k][m]
-  __shared__ __align__(16) float Ws[2][FBK][FBN];  // Ws[k][n]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bm = blockIdx.y * FBM, bn = blockIdx.x * FBN;
-
-  // each thread moves one float4 (4 consecutive k) of one A row and one W row
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
-  const bool a_ok = bm + lr < M, w_ok = bn + lr < N;
-  const float* a_src = A + (size_t)(a_ok ? bm + lr : 0) * K + lk;
-  const float* w_src = W + (size_t)(w_ok ? bn + lr : 0) * K + lk;
-  float4 ra, rw;
-  auto fetch = [&](int k0) {  // K % 4 == 0: a float4 is wholly in or out
-    const bool kin = k0 + lk < K;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    ra = (a_ok && kin) ? *reinterpret_cast<const float4*>(a_src + k0) : z;
-    rw = (w_ok && kin) ? *reinterpret_cast<const float4*>(w_src + k0) : z;
-  };
-  auto stash = [&](int buf) {
-    As[buf][lk + 0][lr] = ra.x; As[buf][lk + 1][lr] = ra.y;
-    As[buf][lk + 2][lr] = ra.z; As[buf][lk + 3][lr] = ra.w;
-    Ws[buf][lk + 0][lr] = rw.x; Ws[buf][lk + 1][lr] = rw.y;
-    Ws[buf][lk + 2][lr] = rw.z; Ws[buf][lk + 3][lr] = rw.w;
-  };
-
-  // thread tile: rows {ty*4 + i, 64 + ty*4 + i}, cols {tx*4 + j, 64 + tx*4 + j}
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int nk = (K + FBK - 1) / FBK;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * FBK);  // global loads overlap the FMAs
-#pragma unroll
-    for (int k = 0; k < FBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ws[buf][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Ws[buf][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) stash(buf ^ 1);  // buf ^ 1 was last read before the barrier
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = bm + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = bn + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < N) um::epilogue_store(acc[i][j], row, col, N, bias, res, gelu, out);
-    }
-  }
-}
-
 template <typename TRes, typename TOut>
 int launch_linear_f32(const TRes* res, TOut* out, const float* A, const float* W,
                       const float* bias, int M, int N, int K, int gelu,
                       cudaStream_t stream) {
-  if (K % 4) return (int)cudaErrorInvalidValue;  // float4 loads along K
-  const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  linear_f32_kernel<TRes, TOut><<<grid, FTHREADS, 0, stream>>>(A, W, bias, res, out, M,
-                                                               N, K, gelu);
-  return (int)cudaGetLastError();
+  return um::launch_linear_wgmma<float, TRes, TOut>(res, out, A, W, bias, M, N, K, gelu,
+                                                    stream);
 }
 
 }  // namespace

@@ -8,13 +8,16 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
 * **K1** ``transformer_block`` — replaces ``transformer_block_fused``
   (``pallas_kernels.py:781``), the bf16 pre-LN block that bf16 serving
   runs once per layer.  Built from three kernels: ``layer_norm``,
-  ``linear`` (bf16 WMMA GEMM with a fused bias/GELU/residual epilogue) and
-  ``attention_core`` (``csrc/transformer_block.cu``).
+  ``linear`` (``tb_linear``: the Hopper GEMM of ``csrc/gemm_sm90.cuh`` on
+  bf16 operands, TMA-fed ``wgmma`` with a fused bias/GELU/residual
+  epilogue) and ``attention_core`` (``csrc/transformer_block.cu``).
 * **K4** ``window_attention`` — replaces ``window_attention_fused``
   (``pallas_kernels.py:83``; ``pl.pallas_call`` in
   ``_fused_attn_fwd_pallas`` ``:158``), the f32 attention that f32 serving
-  runs in every layer.  Built from ``linear`` (f32 SIMT GEMM) and
-  ``attention_core`` with an additive matrix (``csrc/window_attention.cu``).
+  runs in every layer.  Built from ``linear`` (``wa_linear``: the same
+  GEMM on f32 operands as 3xTF32 ``wgmma``, the f32 contract on the tensor
+  cores) and ``attention_core`` with an additive matrix
+  (``csrc/window_attention.cu``).
 * **K2** ``group_flat_norm`` — replaces ``group_flat_norm``
   (``pallas_kernels.py:1113``; ``_gfn_fwd_pallas`` ``:1037`` and
   ``_gfn_bwd_pallas`` ``:1066``), the per-branch LayerNorm with the folded
@@ -278,8 +281,9 @@ def linear(a: torch.Tensor, w: torch.Tensor,
            residual: Optional[torch.Tensor] = None,
            out_dtype: torch.dtype = _F32) -> torch.Tensor:
     """``act(a @ w.T + bias) + residual`` with ``a [M, K]``, ``w [N, K]``
-    (torch ``Linear`` layout) both bfloat16 (tensor-core kernel) or both
-    float32 (SIMT kernel), f32 accumulation; bias f32 ``[N]``; residual
+    (torch ``Linear`` layout) both bfloat16 (``tb_linear``) or both float32
+    (``wa_linear``, 3xTF32: near-f32 products), f32 accumulation, on the
+    ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``; bias f32 ``[N]``; residual
     ``[M, N]`` f32 or bf16; output f32 or bf16."""
     m, k = a.shape
     n = w.shape[0]
@@ -293,7 +297,7 @@ def linear(a: torch.Tensor, w: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype} not float32/bfloat16")
     if not _on_cuda(a, w, bias, residual):
         return linear_plain(a, w, bias, gelu, residual, out_dtype)
-    # both GEMMs read 16-byte vectors along K
+    # TMA reads the operands: 16-byte aligned rows and base
     vec = 8 if a.dtype == _BF16 else 4
     if k % vec or a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{a.dtype} linear needs K % {vec} == 0 and 16-byte "

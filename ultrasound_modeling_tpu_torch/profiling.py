@@ -11,7 +11,8 @@ ms), then 3 profiled ones.  Device ms is the kernels' summed time per
 repetition; idle = 1 - device / unprofiled wall.  The columns split the
 device time into the attention forward kernel (``attention_fwd_kernel``:
 K1's, K4's and K5's cores and K3's forward), K3's backward passes
-(``fa_bwd_*``) and the port's GEMMs (``tb_linear`` / ``wa_linear``), and
+(``fa_bwd_*``) and the port's GEMMs (``linear_wgmma_kernel``: ``tb_linear`` /
+``wa_linear``), and
 list the three largest kernels.  Weights are random from seed 0, as in
 ``chip_smoke.py``.
 """
@@ -34,7 +35,7 @@ CELLS = ("serve-f32", "serve-bf16", "train-f32-composed", "train-f32-flash",
          "train-f32-pallas", "train-bf16-flash", "train-bf16-pallas")
 GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k3_bwd": ("fa_bwd_query_kernel", "fa_bwd_key_kernel"),
-          "port_gemm": ("linear_bf16_kernel", "linear_f32_kernel")}
+          "port_gemm": ("linear_wgmma_kernel",)}
 
 
 def _model(dtype: str, attn_train: str, device):
