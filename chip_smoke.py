@@ -9,7 +9,8 @@ CUDA toolkit:
 Phases (each checks its results; any failure exits non-zero):
 
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
-   for each function of the kernels built on the tensor cores (the
+   print ptxas's registers and spills of K2's functions; for each function
+   of the kernels built on the tensor cores (the
    attention forward core, both passes of K3's backward, and the wgmma GEMM
    behind ``tb_linear`` and ``wa_linear``) print ptxas's registers, spills
    and shared memory and the count of HMMA / HGMMA instructions in its SASS
@@ -28,8 +29,10 @@ Phases (each checks its results; any failure exits non-zero):
    1280, 8 heads), each with and without the folded final LayerNorm; K1's
    and K4's attention cores at both shapes; K4 at the TransUNet and ViT f32
    shapes and a Swin shape; K2 (forward and backward, f32 and bf16,
-   LeakyReLU folded, at the stage-1 and stage-4 branch2 and the stage-1
-   branch1 shapes of batch 32); K3 (forward and backward, f32 and bf16) at
+   LeakyReLU folded, at the eight branch shapes of the flagship's four
+   stages at batch 32, each also as device time per launch over inputs
+   read in turn past the L2, beside ``F.group_norm`` and autograd's
+   backward of it, its library yardsticks); K3 (forward and backward, f32 and bf16) at
    the TransUNet (b32, N 80, C 512) and ViT (b8, N 160, C 1280) train
    shapes; K5's forward (out, saved qkv and P; f32 and bf16) at the ViT
    (b8) and TransUNet (b32) train shapes and its core at b8; K6 on [32,
@@ -255,8 +258,8 @@ GEMM_BUILDS = {"bf16": r"linear_wgmma_kernel(<|I13)__nv_bfloat16",
                "f32": r"linear_wgmma_kernel(<float|If)"}
 
 
-def kernel_report(K):
-    """Per kernel function of the tensor-core kernels: registers,
+def kernel_report(K, kernels=TENSOR_CORE_KERNELS):
+    """Per kernel function whose name holds one of ``kernels``: registers,
     stack and static shared memory (``cuobjdump -res-usage``), bytes
     spilled (ptxas -v in the build log, when this process built the
     libraries) and the tensor-core MMA instructions in its SASS
@@ -311,7 +314,7 @@ def kernel_report(K):
                 mma[fn] += 1
     rows = []
     for fn in sorted(set(usage) | set(mma)):
-        if any(k in fn for k in TENSOR_CORE_KERNELS):
+        if any(k in fn for k in kernels):
             reg, stack, shared, _ = usage.get(fn, (None,) * 4)
             spill = (f"spilled {spills[fn]} bytes" if fn in spills else
                      f"stack frame {stack} bytes (its spills are in the log of "
@@ -351,12 +354,13 @@ def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
 
     log("phase 2 (train kernels): K2 and K3 vs plain PyTorch on the card")
     eps, alpha = 1e-3, 0.3
-    # stage-1 branch2, stage-4 branch2, stage-1 branch1 at batch 32.  The
-    # biases are +-(|scale| sqrt(gsize-1) + 1) by channel: no pre-activation
-    # lies near the LeakyReLU's kink, where a rounding difference could send
-    # the kernel and the plain version down the two (equally right) branches
-    # of the derivative.
-    for rows, f, gsize in ((163840, 90, 10), (2560, 765, 85), (163840, 27, 3)):
+    # The biases are +-(|scale| sqrt(gsize-1) + 1) by channel: no
+    # pre-activation lies near the LeakyReLU's kink, where a rounding
+    # difference could send the kernel and the plain version down the two
+    # (equally right) branches of the derivative.
+    why = ("no one call normalizes each channel group of a row with a "
+           "per-channel affine and the folded LeakyReLU")
+    for rows, f, gsize in GFN_SHAPES:
         for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             y = rand(rows, f, scale=2.0, dtype=dt) + 0.5
             s = 1 + rand(f, scale=0.1)
@@ -367,27 +371,42 @@ def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
             tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if dname == "f32"
                          else (bf16_quanta(2), "2 bf16 quanta"))
             args = (y, s, b, gsize, eps, alpha)
-            why = ("no one call normalizes each channel group of a row with "
-                   "a per-channel affine and the folded LeakyReLU")
-            checks.compare("group_flat_norm_fwd", label,
-                           lambda: K.group_flat_norm_fwd(*args),
-                           lambda: K.group_flat_norm_fwd_plain(*args),
-                           tol, text, inputs=(y, s, b),
-                           ops=elementwise(rows * f, 10), library_text=why)
+            lib_fwd, lib_bwd = group_norm_calls(y, go, s, b, f // gsize, eps)
+            fwd = checks.compare("group_flat_norm_fwd", label,
+                                 lambda: K.group_flat_norm_fwd(*args),
+                                 lambda: K.group_flat_norm_fwd_plain(*args),
+                                 tol, text, inputs=(y, s, b),
+                                 ops=elementwise(rows * f, 10), library=lib_fwd,
+                                 library_text=f"F.group_norm {dname} alone, "
+                                              f"no LeakyReLU; {why}")
             bargs = (y, go, s, b, gsize, eps, alpha)
-            checks.compare("group_flat_norm_bwd", label,
-                           lambda: K.group_flat_norm_bwd(*bargs),
-                           lambda: K.group_flat_norm_bwd_plain(*bargs),
-                           (tol, f32_tol, f32_tol),
-                           f"dy {text}; dscale, dbias (float32 sums over "
-                           f"all rows) 1e-4 x max(1,|plain|)",
-                           inputs=(y, go, s, b), ops=elementwise(rows * f, 20),
-                           library_text=why)
+            bwd = checks.compare("group_flat_norm_bwd", label,
+                                 lambda: K.group_flat_norm_bwd(*bargs),
+                                 lambda: K.group_flat_norm_bwd_plain(*bargs),
+                                 (tol, f32_tol, f32_tol),
+                                 f"dy {text}; dscale, dbias (float32 sums over "
+                                 f"all rows) 1e-4 x max(1,|plain|)",
+                                 inputs=(y, go, s, b), ops=elementwise(rows * f, 20),
+                                 library=lib_bwd,
+                                 library_text=f"autograd.grad of F.group_norm "
+                                              f"{dname} alone; {why}")
             again = K.group_flat_norm_bwd(*bargs)
             first = K.group_flat_norm_bwd(*bargs)
             require(torch.equal(again[1], first[1])
                     and torch.equal(again[2], first[2]),
                     f"K2 dscale/dbias differ between runs at {label}")
+            del again, first
+            per = k2_per_launch(K, y, go, s, b, gsize, eps, alpha)
+            log(f"  K2 {label}: device time per launch ({per['sets']} input "
+                f"sets, {per['mb']:.0f} MB read in turn): fwd kernel "
+                f"{per['fwd']:.4f} ms, F.group_norm {per['lib_fwd']:.4f} ms, "
+                f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_ms'] / per['fwd']:.0%}"
+                f" of it); bwd kernel {per['bwd']:.4f} ms, autograd.grad of "
+                f"F.group_norm {per['lib_bwd']:.4f} ms, bound {bwd['bound_ms']:.4f} "
+                f"ms ({bwd['bound_ms'] / per['bwd']:.0%} of it); a copy of y "
+                f"{per['copy']:.4f} ms")
+            del y, go, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
     # K3 at the TransUNet (b32, N 80, C 512, 4 heads) and the ViT (b8, N
     # 160, C 1280, 8 heads) train shapes
     for b_, n, c, heads in ((TRAIN_BATCH["transunet"], 80, 512, 4),
@@ -424,6 +443,84 @@ def phase_train_kernels(checks: Checks, dev, seed: int) -> None:
             log(f"  K3 forward + backward {label}: kernel "
                 f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA forward + autograd.grad "
                 f"{both:.4f} ms")
+
+
+# K2 at batch 32, stage-1 branch2 first (the JSON row's shape): (rows, F,
+# gsize) of branch2 and branch1 at each of the flagship's four stages
+GFN_SHAPES = ((163840, 90, 10), (163840, 27, 3), (40960, 189, 21), (40960, 63, 7),
+              (10240, 378, 42), (10240, 126, 14), (2560, 765, 85), (2560, 252, 28))
+
+
+def k2_report(K) -> None:
+    """Registers and bytes spilled of K2's kernel functions."""
+    rows = kernel_report(K, ("gfn_",))
+    require(rows, "no K2 (gfn_*) kernel function in the libraries")
+    for name, regs, spill, _, _ in rows:
+        log(f"  K2 {name}: {regs} registers, {spill}")
+
+
+def group_norm_calls(y, go, s, b, groups, eps):
+    """K2's library yardsticks: F.group_norm on the same [rows, F] tensor
+    (rows as the batch, F channels in groups of gsize), weights in y's
+    dtype, and autograd's backward of it alone (the graph is built once,
+    here, and kept).  Timed only; the port never calls them."""
+    import torch
+    import torch.nn.functional as F
+    w, bb = s.to(y.dtype), b.to(y.dtype)
+    x = y.detach().requires_grad_()
+    wl, bl = w.detach().requires_grad_(), bb.detach().requires_grad_()
+    out = F.group_norm(x, groups, wl, bl, eps)
+    return (lambda: F.group_norm(y, groups, w, bb, eps),
+            lambda: torch.autograd.grad(out, (x, wl, bl), go, retain_graph=True))
+
+
+def back_to_back_ms(calls, reps: int = 40) -> float:
+    """Device time per call of ``reps`` calls run back to back, rotating over
+    ``calls``: queued behind a sleep on the card, so the host's enqueue
+    stays off the clock, and kept alive to the end, so every output is new
+    memory."""
+    import torch
+    for fn in calls:             # warm, and fill the allocator's cache
+        fn()
+    keep = [calls[i % len(calls)]() for i in range(reps)]
+    del keep
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    keep = [calls[i % len(calls)]() for i in range(reps)]
+    b.record()
+    queued = not a.query()
+    b.synchronize()
+    require(queued, "the host had not queued every call before the card "
+                    "started them: lengthen the sleep")
+    return a.elapsed_time(b) / reps
+
+
+def k2_per_launch(K, y, go, s, b, gsize, eps, alpha):
+    """K2's device time per launch, forward and backward, its library
+    yardsticks' and that of a device copy of y (the forward's bytes, the
+    rate the card reaches in practice), over copies of the inputs read in
+    turn, more than 100 MB in all (past the 50 MB L2, as the train step
+    finds them)."""
+    import math
+    set_bytes = y.numel() * y.element_size()
+    sets = max(2, math.ceil(100e6 / set_bytes))
+    ys = [y.clone() for _ in range(sets)]
+    gs = [go.clone() for _ in range(sets)]
+    groups = y.shape[1] // gsize
+    libs = [group_norm_calls(yi, gi, s, b, groups, eps) for yi, gi in zip(ys, gs)]
+    out = {"sets": sets, "mb": sets * set_bytes / 1e6}
+    out["fwd"] = back_to_back_ms(
+        [lambda yi=yi: K.group_flat_norm_fwd(yi, s, b, gsize, eps, alpha) for yi in ys])
+    out["lib_fwd"] = back_to_back_ms([lib[0] for lib in libs])
+    out["bwd"] = back_to_back_ms(
+        [lambda yi=yi, gi=gi: K.group_flat_norm_bwd(yi, gi, s, b, gsize, eps, alpha)
+         for yi, gi in zip(ys, gs)])
+    out["lib_bwd"] = back_to_back_ms([lib[1] for lib in libs])
+    out["copy"] = back_to_back_ms([lambda yi=yi: yi.clone() for yi in ys])
+    return out
 
 
 def sdpa(qkv, n, heads, scale):
@@ -678,7 +775,8 @@ def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
                                f"d{c // heads} {dname}",
                                lambda: K.attention_train_core(*cargs),
                                lambda: K.attention_train_core_plain(*cargs),
-                               (tol, tol, tol), f"ctx, qkv, P {text}",
+                               (f32_tol, tol, tol),
+                               f"ctx (float32) 1e-4 x max(1,|plain|); qkv, P {text}",
                                inputs=cargs[:1], ops=attn(b, heads, n, c // heads),
                                library_text="SDPA does not return P")
     # K1's and K4's attention cores at the ViT serving shape: batch 64 x 160
@@ -1259,6 +1357,7 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
 
     try:
+        k2_report(K)
         phase_tensor_cores(K)
         phase_kernels(checks, dev, args.seed)
         phase_train_kernels(checks, dev, args.seed)

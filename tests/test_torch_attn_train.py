@@ -124,16 +124,17 @@ def test_k5_f32_forward_saved_and_grads_match_pallas(t, route):
 
 def test_k5_bf16_matches_pallas_within_quanta():
     """bf16 (x, weights and biases bf16, as the JAX Attention casts them):
-    the port rounds the context to bf16 before the output projection where
-    the TPU kernel feeds it unrounded, so the forward agrees within 4 bf16
-    quanta of max|out|; saved qkv and P within 1 quantum of each's max (the
-    same f32 values, rounded after sums in another order); every gradient
-    within 8 quanta of its max (bf16 operands through two more products)."""
+    both project the f32 context with f32 sums and round the output once,
+    so the forward agrees within 1 bf16 quantum of max|out| (one rounding
+    of values that agree to f32); saved qkv and P within 1 quantum of each's
+    max (the same f32 values, rounded after sums in another order); every
+    gradient within 8 quanta of its max (bf16 operands through two more
+    products)."""
     args = _inputs(seed=11)
     jout, jgrads, qkv_hm, probs, tt = _jax(args, jnp.bfloat16, None)
     targs = _port_args(args, torch.bfloat16)
     out, grads = _port_grads(K.attention_train_fused, targs)
-    assert np.abs(out - jout).max() <= _quanta(jout, 4)
+    assert np.abs(out - jout).max() <= _quanta(jout, 1)
     for name, g, w in zip(NAMES, grads, jgrads):
         assert np.abs(g - w).max() <= _quanta(w, 8), name
     x2, qkv_w, qkv_b, proj_w, proj_b = (a.detach() for a in targs)
@@ -148,6 +149,26 @@ def test_k5_bf16_matches_pallas_within_quanta():
     diag = np.stack([blocks[:, :, i, :, i, :] for i in range(tt)], axis=1)
     assert np.abs(p.float().numpy() - diag.reshape(B, HEADS, N, N)).max() <= (
         _quanta(diag, 1))
+
+
+def test_k5_bf16_projects_the_f32_context():
+    """Under bf16 the plain forward's core returns the context in float32,
+    and the output is exactly the f32 product of that context and the
+    upcast projection weights, rounded once to bf16 (the reference's
+    ``jnp.dot(ho, projw, preferred_element_type=f32)``, :294-308)."""
+    x, qkv_w, qkv_b, proj_w, proj_b = (a.detach() for a in _port_args(
+        _inputs(seed=3), torch.bfloat16))
+    x2 = x.reshape(B * N, C)
+    out, qkv, p = K.attention_train_fwd(x2, qkv_w, qkv_b, proj_w, proj_b, N,
+                                        HEADS, SCALE)
+    ctx, qkv_c, p_c = K.attention_train_core_plain(
+        K.linear_plain(x2, qkv_w, qkv_b), N, HEADS, SCALE, torch.bfloat16)
+    assert ctx.dtype == torch.float32
+    assert qkv_c.dtype == p_c.dtype == out.dtype == torch.bfloat16
+    want = K.linear_plain(ctx, proj_w.float(), proj_b,
+                          out_dtype=torch.bfloat16)
+    assert torch.equal(out, want)
+    assert torch.equal(qkv, qkv_c) and torch.equal(p, p_c)
 
 
 def test_k5_guards():

@@ -5,6 +5,8 @@ machine with the card runs it on its own:
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -155,28 +157,28 @@ def _f32_tol(want):
     return 1e-4 * max(1.0, want.float().abs().max().item())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,f,gsize", [(163840, 90, 10), (2560, 765, 85),
-                                          (163840, 27, 3), (37, 63, 7)])
-@pytest.mark.parametrize("dtype", [torch.float32, BF])
-@pytest.mark.parametrize("act", [None, 0.3])
-def test_group_flat_norm_matches_plain(cuda, rows, f, gsize, dtype, act):
-    """K2 forward and backward at the flagship's extreme shapes (stage-1 and
-    stage-4 branch2, stage-1 branch1, batch 32) and a ragged one; dscale and
-    dbias are also checked to be the same bits on a second run.
+# (rows, F, gsize) of branch2 and branch1 at the flagship's four stages,
+# batch 32
+GFN_FLAGSHIP = [(163840, 90, 10), (163840, 27, 3), (40960, 189, 21), (40960, 63, 7),
+                (10240, 378, 42), (10240, 126, 14), (2560, 765, 85), (2560, 252, 28)]
+
+
+def _gfn_matches_plain(dev, rows, f, gsize, dtype, act, seed=5):
+    """K2 forward and backward against the plain version; dscale and dbias
+    are also checked to be the same bits on a second run.
 
     With the LeakyReLU folded in, the biases are +-(scale * sqrt(gsize - 1)
     + 1) by channel: a normalized value never exceeds sqrt(gsize - 1), so
     every pre-activation lies at least 1 from the kink, where a rounding
     difference could send the kernel and the plain version down the two
     (equally right) branches of the derivative."""
-    g = torch.Generator().manual_seed(5)
-    y = _rand(g, cuda, rows, f, scale=2.0, dtype=dtype) + 0.5
-    s, b = 1 + _rand(g, cuda, f, scale=0.1), _rand(g, cuda, f, scale=0.1)
+    g = torch.Generator().manual_seed(seed)
+    y = _rand(g, dev, rows, f, scale=2.0, dtype=dtype) + 0.5
+    s, b = 1 + _rand(g, dev, f, scale=0.1), _rand(g, dev, f, scale=0.1)
     if act is not None:
-        sign = torch.where(torch.arange(f, device=cuda) % 2 == 0, 1.0, -1.0)
+        sign = torch.where(torch.arange(f, device=dev) % 2 == 0, 1.0, -1.0)
         b = sign * (s.abs() * (gsize - 1) ** 0.5 + 1)
-    go = _rand(g, cuda, rows, f, dtype=dtype)
+    go = _rand(g, dev, rows, f, dtype=dtype)
     K.reset_launch_counts()
     got = K.group_flat_norm_fwd(y, s, b, gsize, 1e-3, act)
     want = K.group_flat_norm_fwd_plain(y, s, b, gsize, 1e-3, act)
@@ -194,6 +196,55 @@ def test_group_flat_norm_matches_plain(cuda, rows, f, gsize, dtype, act):
     assert torch.equal(again[1], ds) and torch.equal(again[2], db)
     assert K.LAUNCHES["group_flat_norm_fwd"] == 1
     assert K.LAUNCHES["group_flat_norm_bwd"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f,gsize", GFN_FLAGSHIP)
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("act", [None, 0.3])
+def test_group_flat_norm_matches_plain(cuda, rows, f, gsize, dtype, act):
+    """K2 at all eight branch shapes of the flagship at batch 32."""
+    _gfn_matches_plain(cuda, rows, f, gsize, dtype, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_group_flat_norm_ragged_rows(cuda, dtype):
+    """Row counts at the edges of the launch plan: fewer rows than one tile
+    (and than 16 bytes' worth of rows), one row over a tile, and a run of
+    many tiles whose last one ends off a 16-byte multiple (rows * F * elem),
+    so its tail is copied by the threads."""
+    f, gsize = 63, 7
+    elem = torch.tensor([], dtype=dtype).element_size()
+    step = 16 // math.gcd(f * elem, 16)
+    blocks = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rows, edge in ((step - 1, "under"), (step + 1, "over"), (100001, "tail")):
+        r, _ = K.gfn_plan(rows, f, elem, "fwd", blocks)
+        assert {"under": rows < r, "over": rows == r + 1,
+                "tail": rows > 8 * r and rows * f * elem % 16 != 0}[edge]
+        _gfn_matches_plain(cuda, rows, f, gsize, dtype, 0.3)
+
+
+@pytest.mark.cuda
+def test_group_flat_norm_unaligned_view(cuda):
+    """A contiguous view whose data does not start 16-byte aligned: the
+    kernel wrappers raise ValueError; the autograd entry copies it once
+    (counted) and launches."""
+    g = torch.Generator().manual_seed(12)
+    base = _rand(g, cuda, 64 * 90 + 1)
+    y = base[1:].view(64, 90)
+    assert y.data_ptr() % 16
+    s, b = torch.ones(90, device=cuda), torch.zeros(90, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.group_flat_norm_fwd(y, s, b, 10, 1e-3)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.group_flat_norm_bwd(y, y.clone(), s, b, 10, 1e-3)
+    K.reset_launch_counts()
+    out = K.group_flat_norm(y, s, b, 10, 1e-3, act="leaky")
+    assert K.LAYOUT_COPIES["group_flat_norm"] == 1
+    assert K.LAUNCHES["group_flat_norm_fwd"] == 1
+    torch.testing.assert_close(out, K.group_flat_norm_plain(y, s, b, 10, 1e-3, act="leaky"),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -252,8 +303,9 @@ def test_autograd_functions_launch_backward_kernels(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, BF])
 def test_attention_train_fwd_matches_plain(cuda, b, seq, c, heads, dtype):
     """K5 forward (out, saved qkv, P) at the ViT and TransUNet train shapes
-    and a small ragged one; then AttentionTrainFused's gradients against
-    autograd of the plain route."""
+    and a small ragged one, bf16 included (its contract: the output
+    projection of the f32 context, rounded once); then AttentionTrainFused's
+    gradients against autograd of the plain route."""
     g = torch.Generator().manual_seed(8)
     lin = c ** -0.5
     x = _rand(g, cuda, b * seq, c, dtype=dtype)
@@ -273,7 +325,10 @@ def test_attention_train_fwd_matches_plain(cuda, b, seq, c, heads, dtype):
         assert (gt.float() - wt.float()).abs().max().item() <= tol
     assert K.LAUNCHES["attention_train"] == 1
     assert K.LAUNCHES["at_attention_core"] == 1
-    assert K.LAUNCHES["tb_linear" if not f32 else "wa_linear"] == 2
+    # the qkv projection in x's dtype, the output projection in f32 (the f32
+    # context times the upcast weights)
+    assert K.LAUNCHES["wa_linear"] == (2 if f32 else 1)
+    assert K.LAUNCHES["tb_linear"] == (0 if f32 else 1)
 
     leaves = [t.detach().clone().requires_grad_() for t in args[:5]]
     x3 = leaves[0].view(b, seq, c)
@@ -302,7 +357,7 @@ def _qkv(g, dev, b, seq, c, dtype=torch.float32):
 def test_attention_core_variants_at_ragged_shapes(cuda, seq, d):
     """The tensor-core forward core in each of its launchers: K1's (P, V
     rounded to bf16), K4's with an additive matrix (three windows' worth,
-    -inf-free), K5's f32 and bf16 (context, saved qkv, P)."""
+    -inf-free), K5's f32 and bf16 (f32 context, saved qkv, P)."""
     g = torch.Generator().manual_seed(10 + seq + d)
     heads, b = 2, 3
     c = heads * d
@@ -319,9 +374,10 @@ def test_attention_core_variants_at_ragged_shapes(cuda, seq, d):
     for dt in (torch.float32, BF):
         got = K.attention_train_core(qkv, seq, heads, scale, dt)
         want = K.attention_train_core_plain(qkv, seq, heads, scale, dt)
-        for gt, wt in zip(got, want):
-            assert gt.dtype == wt.dtype == dt and gt.shape == wt.shape
-            tol = _f32_tol(wt) if dt == torch.float32 else _quanta(wt, 2)
+        # the context in float32, the saved qkv and P in dt
+        for gt, wt, want_dt in zip(got, want, (torch.float32, dt, dt)):
+            assert gt.dtype == wt.dtype == want_dt and gt.shape == wt.shape
+            tol = _f32_tol(wt) if want_dt == torch.float32 else _quanta(wt, 2)
             assert (gt.float() - wt.float()).abs().max().item() <= tol
 
 

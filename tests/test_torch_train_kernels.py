@@ -35,9 +35,12 @@ def _bf16_quanta(want, n):
 # K2: group_flat_norm
 # ---------------------------------------------------------------------------
 
-# rows beyond one Pallas row tile (2048 rows for F <= 128, 512 for F > 384)
-# and not a multiple of it, so the JAX kernel's tail masking is exercised
-GFN_SHAPES = {3: (2100, 27), 10: (2100, 90), 85: (600, 765)}
+# (rows, F) by group size: the flagship's eight branch widths (F = 9 gsize).
+# 3, 10 and 85 run beyond one Pallas row tile (2048 rows for F <= 128, 512
+# for F > 384) and not a multiple of it, so the JAX kernel's tail masking is
+# exercised; the other five at small row counts, one tile
+GFN_SHAPES = {3: (2100, 27), 10: (2100, 90), 85: (600, 765), 7: (300, 63),
+              14: (200, 126), 21: (150, 189), 28: (100, 252), 42: (70, 378)}
 
 
 def _gfn_inputs(gsize, act, seed=0):
@@ -58,7 +61,7 @@ def _gfn_inputs(gsize, act, seed=0):
     return y, s, b, g
 
 
-@pytest.mark.parametrize("gsize", [3, 10, 85])
+@pytest.mark.parametrize("gsize", list(GFN_SHAPES))
 @pytest.mark.parametrize("act", [None, "leaky"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_k2_plain_and_autograd_match_pallas_interpret(gsize, act, dt):
@@ -100,6 +103,29 @@ def test_k2_plain_and_autograd_match_pallas_interpret(gsize, act, dt):
         for got, w in ((ds, wds), (db, wdb)):
             rel = 1e-4 if f32 else 4e-3
             assert np.abs(_np(got) - w).max() <= rel * max(1.0, np.abs(w).max())
+
+
+@pytest.mark.parametrize("gsize", list(GFN_SHAPES))
+def test_k2_launch_plan(gsize):
+    """The CUDA kernels' tile plan (ops/kernels.gfn_plan) at the flagship's
+    batch-32 row counts and at this file's: every tile a whole multiple of
+    16 bytes, no bigger than its target unless one 16-byte step of rows is,
+    at most max_blocks blocks, and every block walking the same number of
+    tiles give or take one (the backward's column sums depend on nothing
+    else)."""
+    _, f = GFN_SHAPES[gsize]
+    stage_rows = {27: 163840, 90: 163840, 63: 40960, 189: 40960,
+                  126: 10240, 378: 10240, 252: 2560, 765: 2560}
+    for rows in (stage_rows[f], GFN_SHAPES[gsize][0], 1, 37):
+        for elem in (4, 2):
+            step = 16 // np.gcd(f * elem, 16)
+            for direction, target in K.GFN_TILE_BYTES.items():
+                r, grid = K.gfn_plan(rows, f, elem, direction, 264)
+                tiles = -(-rows // r)
+                assert r % step == 0 and r * f * elem % 16 == 0
+                assert r * f * elem <= max(target, step * f * elem)
+                assert grid == min(tiles, 264)
+                assert -(-tiles // grid) - tiles // grid <= 1
 
 
 def test_k2_explicit_backward_matches_autograd_of_forward(rng):

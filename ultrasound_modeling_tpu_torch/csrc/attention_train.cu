@@ -10,17 +10,18 @@
 //   GEMM(qkv, +b, f32: tb_linear for bf16, wa_linear for f32)
 //   -> this attention core, which per (sequence, head) takes the scores from
 //      the float32 projection (q*scale in f32), keeps P in f32 through P.V,
-//      and stores P [B, H, S, S] and (bf16 only) the rounded qkv copy in
-//      the train dtype, both in natural layouts
-//   -> GEMM(proj, +b) in the train dtype.
+//      writes the float32 context, and stores P [B, H, S, S] and (bf16 only)
+//      the rounded qkv copy in the train dtype, both in natural layouts
+//   -> GEMM(proj, +b) of the f32 context and the upcast weights (wa_linear),
+//      rounded once to the train dtype.
 // Dropped from the TPU kernel, all Mosaic/VMEM artifacts: the (batch tile,
 // head) grid with head-sliced weights, the head-major [H, B*N, 3d] qkv and
 // [G, H, rows, rows] probs layouts (whose relayouts made K5 the measured
 // loser on the TPU, :492-495), and the -1e9 block-diagonal packing.
 //
-// Numerics against the TPU kernel: the same up to the output projection;
-// under bf16 the context is rounded to bf16 before it (the tensor-core
-// GEMM takes bf16 operands) where the TPU kernel fed it unrounded.
+// Numerics against the TPU kernel: the same contract, f32 sums in another
+// order; as there (:294-308), the context enters the output projection in
+// f32 and the output is rounded once.
 //
 // Bound: at the ViT train shape (b8, S 160, C 1280, 8 heads) the core
 // (attention_core.cuh: a block per (sequence, head, 64 query rows), both
@@ -36,22 +37,22 @@ using um::bf16;
 
 extern "C" {
 
-// ctx[B*S, C] = per (sequence, head) softmax(q*scale . k^T) . v on the f32
-// projection qkv [B*S, 3C]; probs [B, H, S, S] = that softmax; io_bf16
-// selects bf16 for ctx and probs and then also writes qkv_save [B*S, 3C],
-// qkv rounded to bf16 (with float32 outputs qkv_save must be null: the
+// ctx[B*S, C] (float32) = per (sequence, head) softmax(q*scale . k^T) . v on
+// the f32 projection qkv [B*S, 3C]; probs [B, H, S, S] = that softmax;
+// save_bf16 selects bf16 for probs and then also writes qkv_save [B*S, 3C],
+// qkv rounded to bf16 (with float32 probs qkv_save must be null: the
 // projection is its own copy).
-int at_attention_core(const float* qkv, void* out, void* probs, void* qkv_save,
-                      int io_bf16, int B, int S, int C, int H, float scale,
+int at_attention_core(const float* qkv, float* out, void* probs, void* qkv_save,
+                      int save_bf16, int B, int S, int C, int H, float scale,
                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (io_bf16)
-    return um::launch_attention_fwd<float, false, bf16, bf16>(
-        qkv, nullptr, (bf16*)out, nullptr, B, S, C, H, 1, scale, true, st, (bf16*)probs,
+  if (save_bf16)
+    return um::launch_attention_fwd<float, false, float, bf16>(
+        qkv, nullptr, out, nullptr, B, S, C, H, 1, scale, true, st, (bf16*)probs,
         (bf16*)qkv_save);
   if (qkv_save) return (int)cudaErrorInvalidValue;
   return um::launch_attention_fwd<float, false, float, float>(
-      qkv, nullptr, (float*)out, nullptr, B, S, C, H, 1, scale, true, st, (float*)probs,
+      qkv, nullptr, out, nullptr, B, S, C, H, 1, scale, true, st, (float*)probs,
       (float*)nullptr);
 }
 

@@ -23,7 +23,8 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   ``_gfn_bwd_pallas`` ``:1066``), the per-branch LayerNorm with the folded
   LeakyReLU that every split-attention stage runs twice on the train path.
   Forward ``group_flat_norm_fwd`` and backward ``group_flat_norm_bwd``
-  (``csrc/group_flat_norm.cu``), joined by ``GroupFlatNorm``.
+  (``csrc/group_flat_norm.cu``: a persistent grid walking 16-byte aligned
+  row tiles through a bulk-copy ring), joined by ``GroupFlatNorm``.
 * **K3** ``flash_mha`` — replaces ``flash_mha`` (``pallas_kernels.py:655``;
   ``_flash_fwd_pallas`` ``:583`` and ``_flash_bwd_pallas`` ``:614``), the
   LSE-saving attention core of ``--attn-train flash``.  Forward
@@ -34,8 +35,9 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   (``pallas_kernels.py:446``; ``pl.pallas_call`` in
   ``_attn_train_fwd_pallas`` ``:338``), the train attention of
   ``--attn-train pallas``: forward ``attention_train_fwd`` = ``linear`` +
-  ``at_attention_core`` (which also stores P and the qkv copy the backward
-  reads, ``csrc/attention_train.cu``) + ``linear``; the backward is PyTorch
+  ``at_attention_core`` (float32 context; it also stores P and the qkv copy
+  the backward reads, ``csrc/attention_train.cu``) + the f32 ``linear``
+  (``wa_linear``) of the output projection; the backward is PyTorch
   in ``AttentionTrainFused``, as it is XLA in the JAX package (``:379-430``).
 * **K6** ``label2vec_smooth`` — replaces ``fused_label2vec_smooth``
   (``pallas_kernels.py:1157``, ``pl.pallas_call`` ``:1173``), one
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -90,10 +93,10 @@ SOURCES = {
         "wa_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "wa_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
     "group_flat_norm.cu": {
-        "group_flat_norm_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                _F, _P],
+        "group_flat_norm_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _I, _F, _P],
         "group_flat_norm_bwd": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _F, _I, _F, _P]},
+                                _I, _I, _I, _F, _I, _F, _P]},
     "flash_attention.cu": {
         "flash_attention_fwd": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
         "flash_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
@@ -114,7 +117,8 @@ LAUNCHES = {"transformer_block": 0, "window_attention": 0,
             "attention_train": 0,
             **{fn: 0 for fns in SOURCES.values() for fn in fns}}
 # inputs that K2 / K3 received in a layout their kernels do not read and
-# copied (a non-contiguous conv output or incoming gradient)
+# copied (a non-contiguous conv output or incoming gradient; for K2 also a
+# view whose data is not 16-byte aligned)
 LAYOUT_COPIES = {"group_flat_norm": 0, "flash_mha": 0}
 
 _LIB: Optional[types.SimpleNamespace] = None
@@ -502,10 +506,33 @@ def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,
 # K2: per-group channel LayerNorm over a flat channel axis (+ LeakyReLU)
 # ---------------------------------------------------------------------------
 
-def _gfn_rows_per_block(f: int) -> int:
-    """Rows per CUDA block: a tile of about 4096 values (16 KB in float32)
-    in shared memory, at most 128 rows."""
-    return max(1, min(128, 4096 // f))
+# bytes of a K2 row tile: of y in the forward, of y and of g each in the
+# backward (csrc/group_flat_norm.cu keeps two of them in flight a block)
+GFN_TILE_BYTES = {"fwd": 16384, "bwd": 8192}
+_SM_COUNT = {}
+
+
+def gfn_plan(rows: int, f: int, elem: int, direction: str,
+             max_blocks: int) -> Tuple[int, int]:
+    """``(R, grid)`` of a K2 launch: tiles of R rows, R a multiple of the
+    rows that make 16 bytes and about ``GFN_TILE_BYTES`` of a tile, over at
+    most ``max_blocks`` blocks, sized so that every block walks the same
+    number of tiles, give or take one.  The plan depends on the shape and
+    the card alone, so the backward's column sums add in one order."""
+    step = 16 // math.gcd(f * elem, 16)
+    rmax = max(step, GFN_TILE_BYTES[direction] // (f * elem) // step * step)
+    per_block = -(-(-(-rows // rmax)) // max_blocks)
+    r = -(-(-(-rows // (max_blocks * per_block))) // step) * step
+    return r, min(-(-rows // r), max_blocks)
+
+
+def _gfn_launch_plan(y2: torch.Tensor, direction: str) -> Tuple[int, int]:
+    """The plan on y2's card: at most two blocks an SM."""
+    dev = y2.device
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, f = y2.shape
+    return gfn_plan(rows, f, y2.element_size(), direction, 2 * _SM_COUNT[dev])
 
 
 def _check_gfn(y2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -518,6 +545,14 @@ def _check_gfn(y2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"channels {f} not divisible by group size {gsize}")
     _check(scale, "scale", (_F32,), (f,))
     _check(bias, "bias", (_F32,), (f,))
+
+
+def _check_gfn_aligned(*ts: torch.Tensor) -> None:
+    """The kernels bulk-copy 16-byte aligned row tiles."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("group_flat_norm's CUDA kernels take tensors whose "
+                             "data starts 16-byte aligned")
 
 
 def _gfn_groups(y2: torch.Tensor, gsize: int, eps: float):
@@ -569,11 +604,12 @@ def group_flat_norm_fwd(y2: torch.Tensor, scale: torch.Tensor,
     _check_gfn(y2, scale, bias, gsize)
     if not _on_cuda(y2, scale, bias):
         return group_flat_norm_fwd_plain(y2, scale, bias, gsize, eps, alpha)
+    _check_gfn_aligned(y2)
     rows, f = y2.shape
     out = torch.empty_like(y2)
     _launch(build().group_flat_norm_fwd, _ptr(y2), int(y2.dtype == _BF16),
             _ptr(scale), _ptr(bias), _ptr(out), rows, f, gsize,
-            _gfn_rows_per_block(f), float(eps), int(alpha is not None),
+            *_gfn_launch_plan(y2, "fwd"), float(eps), int(alpha is not None),
             float(alpha or 0.0), _stream())
     return out
 
@@ -591,19 +627,18 @@ def group_flat_norm_bwd(y2: torch.Tensor, g2: torch.Tensor,
     if not _on_cuda(y2, g2, scale, bias):
         return group_flat_norm_bwd_plain(y2, g2, scale, bias, gsize, eps,
                                          alpha)
+    _check_gfn_aligned(y2, g2)
     rows, f = y2.shape
-    rpb = _gfn_rows_per_block(f)
-    blocks = -(-rows // rpb)
+    r, grid = _gfn_launch_plan(y2, "bwd")
     dy = torch.empty_like(y2)
-    partial = torch.empty((blocks, 2, f), dtype=_F32, device=y2.device)
-    dscale = torch.empty(f, dtype=_F32, device=y2.device)
-    dbias = torch.empty(f, dtype=_F32, device=y2.device)
+    partial = torch.empty((grid, 2, f), dtype=_F32, device=y2.device)
+    dsb = torch.empty((2, f), dtype=_F32, device=y2.device)
     _launch(build().group_flat_norm_bwd, _ptr(y2), _ptr(g2),
             int(y2.dtype == _BF16), _ptr(scale), _ptr(bias), _ptr(dy),
-            _ptr(partial), _ptr(dscale), _ptr(dbias), rows, f, gsize, rpb,
+            _ptr(partial), _ptr(dsb[0]), _ptr(dsb[1]), rows, f, gsize, r, grid,
             float(eps), int(alpha is not None), float(alpha or 0.0),
             _stream())
-    return dy, dscale, dbias
+    return dy, dsb[0], dsb[1]
 
 
 def _contiguous(t: torch.Tensor, kernel: str) -> torch.Tensor:
@@ -611,6 +646,15 @@ def _contiguous(t: torch.Tensor, kernel: str) -> torch.Tensor:
         LAYOUT_COPIES[kernel] += 1
         t = t.contiguous()
     return t
+
+
+def _gfn_layout(t: torch.Tensor) -> torch.Tensor:
+    """K2's kernels read a contiguous tensor whose data starts 16-byte
+    aligned; any other is copied once and counted."""
+    if t.is_contiguous() and not (t.is_cuda and t.data_ptr() % 16):
+        return t
+    LAYOUT_COPIES["group_flat_norm"] += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 class GroupFlatNorm(torch.autograd.Function):
@@ -627,7 +671,7 @@ class GroupFlatNorm(torch.autograd.Function):
     def backward(ctx, g):
         y2, scale, bias = ctx.saved_tensors
         dy, dscale, dbias = group_flat_norm_bwd(
-            y2, _contiguous(g, "group_flat_norm").to(y2.dtype), scale, bias,
+            y2, _gfn_layout(g).to(y2.dtype), scale, bias,
             *ctx.gfn)
         return dy, dscale, dbias, None, None, None
 
@@ -644,11 +688,11 @@ def group_flat_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Differentiable K2 with the JAX signature (``pallas_kernels.
     group_flat_norm``): ``y [..., F]``, per-channel ``scale``/``bias`` of F
     values (any shape), ``act='leaky'`` folds LeakyReLU(``act_alpha``) in.
-    The kernels read ``y`` as a contiguous ``[rows, F]``; any other layout
-    is copied once and counted in ``LAYOUT_COPIES``."""
+    The kernels read ``y`` as a contiguous, 16-byte aligned ``[rows, F]``;
+    any other layout is copied once and counted in ``LAYOUT_COPIES``."""
     alpha = _gfn_alpha(act, act_alpha)
     f = y.shape[-1]
-    y2 = _contiguous(y, "group_flat_norm").view(-1, f)
+    y2 = _gfn_layout(y).view(-1, f)
     out = GroupFlatNorm.apply(y2, scale.reshape(-1), bias.reshape(-1),
                               int(gsize), float(eps), alpha)
     return out.view(y.shape)
@@ -817,7 +861,7 @@ def attention_train_core_plain(qkv: torch.Tensor, seq: int, num_heads: int,
     q, k, v = _split_heads(qkv, seq, num_heads)
     p = torch.softmax((q * scale) @ k.transpose(-1, -2), dim=-1)
     ctx = (p @ v).transpose(1, 2).reshape(qkv.shape[0], -1)
-    return ctx.to(dtype), qkv.to(dtype), p.to(dtype)
+    return ctx, qkv.to(dtype), p.to(dtype)
 
 
 def attention_train_core(qkv: torch.Tensor, seq: int, num_heads: int,
@@ -826,8 +870,9 @@ def attention_train_core(qkv: torch.Tensor, seq: int, num_heads: int,
     """K5's attention core on the float32 projection ``qkv [B*seq, 3C]``:
     per (sequence, head) ``P = softmax(q*scale . k^T)`` in float32 and the
     context ``P.v``.  Returns ``(ctx [B*seq, C], qkv [B*seq, 3C], P [B,
-    heads, seq, seq])`` in ``dtype`` (float32 or bfloat16); under float32
-    the returned qkv is the input itself."""
+    heads, seq, seq])``: the context in float32, the saved qkv and P in
+    ``dtype`` (float32 or bfloat16); under float32 the returned qkv is the
+    input itself."""
     _check(qkv, "qkv", (_F32,))
     if dtype not in (_F32, _BF16):
         raise TypeError(f"dtype {dtype} not float32/bfloat16")
@@ -836,7 +881,7 @@ def attention_train_core(qkv: torch.Tensor, seq: int, num_heads: int,
     if not _on_cuda(qkv):
         return attention_train_core_plain(qkv, seq, num_heads, scale, dtype)
     rows, dev = qkv.shape[0], qkv.device
-    ctx = torch.empty((rows, c), dtype=dtype, device=dev)
+    ctx = torch.empty((rows, c), dtype=_F32, device=dev)
     p = torch.empty((b, num_heads, seq, seq), dtype=dtype, device=dev)
     saved = qkv if dtype == _F32 else torch.empty((rows, 3 * c), dtype=dtype,
                                                   device=dev)
@@ -848,9 +893,11 @@ def attention_train_core(qkv: torch.Tensor, seq: int, num_heads: int,
 
 def _attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads, scale,
                      lin, core):
+    # the output projection is an f32 product of the f32 context and the
+    # upcast weights, rounded once to x's dtype (pallas_kernels.py:294-308)
     dt = x2.dtype
     ctx, qkv, p = core(lin(x2, qkv_w, qkv_b), seq, num_heads, scale, dt)
-    return lin(ctx, proj_w, proj_b, out_dtype=dt), qkv, p
+    return lin(ctx, proj_w.float(), proj_b, out_dtype=dt), qkv, p
 
 
 def attention_train_fwd_plain(x2, qkv_w, qkv_b, proj_w, proj_b, seq,
@@ -868,10 +915,10 @@ def attention_train_fwd(x2: torch.Tensor, qkv_w: torch.Tensor,
     ``qkv_w [3C, C]`` and ``proj_w [C, C]`` in x's dtype (``Linear``
     layout), float32 biases: per (sequence, head) ``softmax(q*scale . k^T)``
     from the float32 projection, ``P.v`` with P in float32, then the output
-    projection.  Returns ``(out [B*seq, C], qkv [B*seq, 3C], P [B, heads,
-    seq, seq])``, all in x's dtype; qkv and P are what the backward reads.
-    Under bfloat16 the context is rounded to bf16 before the output
-    projection (the TPU kernel fed it unrounded)."""
+    projection of the float32 context (an f32 product, ``wa_linear``, with
+    the weights upcast).  Returns ``(out [B*seq, C], qkv [B*seq, 3C], P [B,
+    heads, seq, seq])``, all in x's dtype; qkv and P are what the backward
+    reads."""
     _check_attention_train(x2, qkv_w, qkv_b, proj_w, proj_b, seq, num_heads)
     if not _on_cuda(x2, qkv_w, qkv_b, proj_w, proj_b):
         return attention_train_fwd_plain(x2, qkv_w, qkv_b, proj_w, proj_b,

@@ -1,20 +1,21 @@
 """Where the device time goes: ``torch.profiler`` over the port's serving
-forward and train step, one line per ViT cell, on the card.
+forward and train step, one line per cell, on the card.
 
     python -m ultrasound_modeling_tpu_torch.profiling
 
-A cell is ``serve-{f32,bf16}`` (the kernel path's forward at batch 64) or
-``train-{f32,bf16}-{composed,flash,pallas}`` (the whole train step, kernel
-route, augmentation on, at the ViT's batch of 8).  Each cell runs 3 warm-ups,
-then 5 unprofiled repetitions (host clock around ``synchronize``: the wall
-ms), then 3 profiled ones.  Device ms is the kernels' summed time per
-repetition; idle = 1 - device / unprofiled wall.  The columns split the
-device time into the attention forward kernel (``attention_fwd_kernel``:
-K1's, K4's and K5's cores and K3's forward), K3's backward passes
-(``fa_bwd_*``) and the port's GEMMs (``linear_wgmma_kernel``: ``tb_linear`` /
-``wa_linear``), and
-list the three largest kernels.  Weights are random from seed 0, as in
-``chip_smoke.py``.
+A cell is a family and ``serve-{f32,bf16}`` (the kernel path's forward at
+batch 64) or ``train-{f32,bf16}-{composed,flash,pallas}`` (the whole train
+step, kernel route, augmentation on, at the family's batch: ViT 8,
+TransUNet 32).  The ViT runs every cell, the TransUNet its f32 composed and
+bf16 flash train steps.  Each cell runs 3 warm-ups, then 5 unprofiled
+repetitions (host clock around ``synchronize``: the wall ms), then 3
+profiled ones.  Device ms is the kernels' summed time per repetition; idle
+= 1 - device / unprofiled wall.  The columns split the device time into the
+attention forward kernel (``attention_fwd_kernel``: K1's, K4's and K5's
+cores and K3's forward), K3's backward passes (``fa_bwd_*``), the port's
+GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``) and K2
+(``gfn_*``: forward, backward and its column reduce), and list the three
+largest kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -30,20 +31,25 @@ import torch
 from ultrasound_modeling_tpu_torch.config import default_config
 from ultrasound_modeling_tpu_torch.device import resolve_device
 
-FAMILY, SEED, SERVE_BATCH = "vit", 0, 64
-CELLS = ("serve-f32", "serve-bf16", "train-f32-composed", "train-f32-flash",
-         "train-f32-pallas", "train-bf16-flash", "train-bf16-pallas")
+SEED, SERVE_BATCH = 0, 64
+CELLS = (("vit", "serve-f32"), ("vit", "serve-bf16"),
+         ("vit", "train-f32-composed"), ("vit", "train-f32-flash"),
+         ("vit", "train-f32-pallas"), ("vit", "train-bf16-flash"),
+         ("vit", "train-bf16-pallas"),
+         ("transunet", "train-f32-composed"), ("transunet", "train-bf16-flash"))
 GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k3_bwd": ("fa_bwd_query_kernel", "fa_bwd_key_kernel"),
-          "port_gemm": ("linear_wgmma_kernel",)}
+          "port_gemm": ("linear_wgmma_kernel",),
+          "k2": ("gfn_forward_kernel", "gfn_backward_kernel",
+                 "gfn_reduce_kernel")}
 
 
-def _model(dtype: str, attn_train: str, device):
+def _model(family: str, dtype: str, attn_train: str, device):
     from ultrasound_modeling_tpu_torch.models.registry import build_model
     from ultrasound_modeling_tpu_torch.utils.checkpoint import (
         from_flax, random_flax_variables)
     mcfg = dataclasses.replace(
-        default_config(FAMILY).model, attn_train_impl=attn_train,
+        default_config(family).model, attn_train_impl=attn_train,
         compute_dtype="bfloat16" if dtype == "bf16" else "float32")
     model = build_model(mcfg)
     model.load_state_dict(from_flax(random_flax_variables(model, SEED),
@@ -51,7 +57,7 @@ def _model(dtype: str, attn_train: str, device):
     return model.to(device)
 
 
-def _cell_fn(cell: str, device):
+def _cell_fn(family: str, cell: str, device):
     """(one repetition of the cell, frames a repetition)."""
     from ultrasound_modeling_tpu_torch.data import synthetic
     from ultrasound_modeling_tpu_torch.train import losses
@@ -60,7 +66,7 @@ def _cell_fn(cell: str, device):
         TrainState, make_train_step)
     parts = cell.split("-")
     if parts[0] == "serve":
-        model = _model(parts[1], "xla", device).eval()
+        model = _model(family, parts[1], "xla", device).eval()
         model.set_attn_impl("kernel")
         x = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
             (SERVE_BATCH, 256, 80, 10)).astype(np.float32)).to(device)
@@ -71,9 +77,9 @@ def _cell_fn(cell: str, device):
         return serve, SERVE_BATCH
     _, dtype, impl = parts
     impl = {"composed": "xla"}.get(impl, impl)
-    model = _model(dtype, impl, device).train()
+    model = _model(family, dtype, impl, device).train()
     model.set_train_route("kernel")
-    cfg = default_config(FAMILY)
+    cfg = default_config(family)
     bs = cfg.train.batch_size
     raw = synthetic.make_raw_array(bs, SEED + 2)
     x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(device)
@@ -85,9 +91,9 @@ def _cell_fn(cell: str, device):
     return (lambda: step(state, x, y, 1e-4)), bs
 
 
-def profile_cell(cell: str, device) -> dict:
+def profile_cell(family: str, cell: str, device) -> dict:
     from torch.profiler import ProfilerActivity, profile
-    fn, frames = _cell_fn(cell, device)
+    fn, frames = _cell_fn(family, cell, device)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -113,7 +119,7 @@ def profile_cell(cell: str, device) -> dict:
     groups = {g: sum(ms for n, ms in kernels.items() if any(k in n for k in keys))
               for g, keys in GROUPS.items()}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
-    return {"family": FAMILY, "cell": cell, "wall_ms": wall,
+    return {"family": family, "cell": cell, "wall_ms": wall,
             "frames_per_s": 1e3 * frames / wall, "device_ms": device_ms,
             "idle": 1.0 - device_ms / wall, "launches": launches / reps,
             **{f"{g}_ms": ms for g, ms in groups.items()},
@@ -130,8 +136,8 @@ def main():
     print(smi.stdout.strip() or f"{torch.cuda.get_device_name(0)}, power limit "
           f"not read (nvidia-smi: rc {smi.returncode} {smi.stderr.strip()})",
           flush=True)
-    for cell in CELLS:
-        row = profile_cell(cell, device)
+    for family, cell in CELLS:
+        row = profile_cell(family, cell, device)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
 
