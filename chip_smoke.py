@@ -28,7 +28,11 @@ Phases (each checks its results; any failure exits non-zero):
    TransUNet shape (b64, S 80, C 512) and the ViT shape (b64, S 160, C
    1280, 8 heads), each with and without the folded final LayerNorm; K1's
    and K4's attention cores at both shapes; K4 at the TransUNet and ViT f32
-   shapes and a Swin shape; K2 (forward and backward, f32 and bf16,
+   shapes and at the Swin's stage 1 at b64 (4,096 windows of 20 tokens, C
+   96, 3 heads, bias table and shift mask) with an f32 and a bf16 input,
+   and K4's backward there (autograd through ``WindowAttentionFused``
+   against autograd through the plain version, beside autograd's backward
+   of ``F.multi_head_attention_forward``); K2 (forward and backward, f32 and bf16,
    LeakyReLU folded, at the eight branch shapes of the flagship's four
    stages at batch 32, each also as device time per launch over inputs
    read in turn past the L2, beside ``F.group_norm`` and autograd's
@@ -43,27 +47,30 @@ Phases (each checks its results; any failure exits non-zero):
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
-   TransUNet, 3b the ViT, batch 64;
-4. the serving main paths: ``serve --model {transunet,vit}`` as a user
+   TransUNet, 3b the ViT, 3c the Swin (K4 in each of its 12 blocks, f32
+   and bf16), batch 64;
+4. the serving main paths: ``serve --model {transunet,vit,swin}`` as a user
    starts it (npz -> bridge -> model -> the port's ``InferenceServer``),
    f32 and bf16, answering concurrent ``/predict`` requests; the launch
-   counters are zeroed just before each and read just after, and K1's and
-   K4's kernels must have launched;
+   counters are zeroed just before each and read just after, and the
+   family's kernels (K1's and K4's; the Swin's K4) must have launched;
 5. one train step at full width and each family's batch (TransUNet 32, ViT
-   8), kernel route (K2 in the TransUNet; K3 under flash, K5 under pallas)
-   against the plain route from the same seeded weights and batch,
+   8, Swin 32), kernel route (K2 in the TransUNet; K3 under flash, K5 under
+   pallas; K4 with its backward in the Swin) against the plain route from
+   the same seeded weights, batch and drop-path generator state,
    augmentation off: loss and every parameter gradient, TransUNet f32
    composed, flash and pallas and bf16 flash, ViT f32 composed, flash and
-   pallas and bf16 pallas and flash; then ms/step and frames/s of the
-   whole step (augmentation on) on both routes, in turns;
+   pallas and bf16 pallas and flash, Swin f32 and bf16; then ms/step and
+   frames/s of the whole step (augmentation on) on both routes, in turns;
 6. the train main paths: ``cli train --synthetic --epochs 1`` as a user
    starts it: the TransUNet in f32, f32 ``--attn-train flash`` and ``--bf16
    --attn-train flash`` (batch 32, two steps), the ViT with ``--attn-train
-   pallas`` and ``--bf16 --attn-train flash`` (batch 8, eight steps); the
-   counters are zeroed just before each run and read just after: K2 must
-   have launched in every TransUNet run, K3 in the flash runs, K5 in the
-   pallas run; the loss is finite and the weights (and the TransUNet's
-   BatchNorm running statistics) moved;
+   pallas`` and ``--bf16 --attn-train flash`` (batch 8, eight steps), the
+   Swin and the Swin ``--bf16`` (batch 32, two steps); the counters are
+   zeroed just before each run and read just after: K2 must have launched
+   in every TransUNet run, K3 in the flash runs, K5 in the pallas run, K4
+   in the Swin runs; the loss is finite and the weights (and the
+   TransUNet's BatchNorm running statistics) moved;
 7. K6, which no path of the system calls, as a caller uses it: the
    smoothed targets of a batch's labels, against ``label2vec`` plus the
    smoothing.
@@ -111,11 +118,13 @@ K5_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:311"
 K6_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1157"
 BATCH = 64  # the serving batch (cli serve --max-batch default)
 # TrainConfig.batch_size of each family
-TRAIN_BATCH = {"transunet": 32, "vit": 8}
+TRAIN_BATCH = {"transunet": 32, "vit": 8, "swin": 32}
 # the kernels each main path must launch
-SERVE_KERNELS = ("transformer_block", "window_attention", "tb_layer_norm",
-                 "tb_linear", "tb_attention_core", "wa_linear",
-                 "wa_attention_core")
+K4_KERNELS = ("window_attention", "wa_linear", "wa_attention_core")
+SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
+                       "tb_attention_core") + K4_KERNELS
+                 for fam in ("transunet", "vit")}
+SERVE_KERNELS["swin"] = K4_KERNELS
 K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 K5_KERNELS = ("attention_train", "at_attention_core")
@@ -599,8 +608,6 @@ K1_NONE = ("no one call runs the whole pre-LN block in K1's bf16 / f32 "
 def phase_kernels(checks: Checks, dev, seed: int) -> None:
     import torch
     from ultrasound_modeling_tpu_torch.ops import kernels as K
-    from ultrasound_modeling_tpu_torch.ops.window_attn import (
-        relative_position_index, shifted_window_mask)
 
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -713,25 +720,93 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
                    ops=attn(b, heads, s, c // heads),
                    library=lambda: sdpa(xq, s, heads, scale),
                    library_text="SDPA f32 on the same q, k, v")
-    # K4 at a Swin shape: 4x5 windows (N 20), C 96, 3 heads, bias + shift mask
-    nw, cs, hs = 8, 96, 3
-    xs = rand(b * nw, 20, cs)
-    table = rand(7 * 9, hs, scale=0.1)
-    rel = torch.from_numpy(relative_position_index((4, 5))).to(dev)
-    mask = torch.from_numpy(shifted_window_mask(8, 20, (4, 5), 2)).to(dev)
-    require(mask.shape[0] == nw, f"shift mask has {mask.shape[0]} windows, want {nw}")
-    sargs = (xs, rand(3 * cs, cs, scale=cs ** -0.5), rand(3 * cs, scale=0.1),
-             rand(cs, cs, scale=cs ** -0.5), rand(cs, scale=0.1), hs)
-    skw = dict(bias_table=table, rel_index=rel, mask=mask)
+    phase_swin_k4(checks, dev, rand)
+
+
+def k4_grads(fn, args, heads, kw, go):
+    """K4's backward alone, through autograd of ``fn`` (the differentiable
+    K4 or its plain version): the forward runs once, here; each call of
+    the function returned runs the backward to x, both projections, both
+    biases and the bias table (the graph is kept between calls)."""
+    import torch
+    leaves = [a.detach().requires_grad_() for a in args]
+    out = fn(*leaves[:5], heads, bias_table=leaves[5], **kw)
+    return lambda: torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+
+def mha_bwd(args, heads, scale, addmask, go):
+    """The library yardstick of K4's backward: autograd's backward alone of
+    one F.multi_head_attention_forward call (``mha``) to x, both
+    projections and both biases (timed only)."""
+    import torch
+    leaves = [a.detach().requires_grad_() for a in args[:5]]
+    out = mha(*leaves, heads, scale, addmask)()
+    got = go.transpose(0, 1)
+    return lambda: torch.autograd.grad(out, leaves, got, retain_graph=True)
+
+
+def window_bwd_ops(b, s, c, heads):
+    """K4 backward's products, all held to the f32 contract: the recompute
+    (qkv, scores, P.V), then d_proj_w, do, dP, dV, dQ, dK, d_qkv_w, dx."""
+    return [mm(b * s, 3 * c, c, PEAK_F32_MM), mm(b * s, c, c, PEAK_F32_MM),
+            mm(b * s, c, c, PEAK_F32_MM), mm(b * s, 3 * c, c, PEAK_F32_MM),
+            mm(b * s, 3 * c, c, PEAK_F32_MM),
+            *attn(b, heads, s, c // heads, products=6)]
+
+
+def phase_swin_k4(checks: Checks, dev, rand) -> None:
+    """K4 at the Swin's stage-1 shape at b64 (4,096 windows of 4x5 tokens,
+    C 96, 3 heads, the bias table and the 64-window shift mask), f32 and
+    bf16 x; then its backward against autograd of the plain version."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
     from ultrasound_modeling_tpu_torch.ops import window_attn
-    am = window_attn.additive_matrix(hs, 20, table, rel, mask)
-    checks.compare("window_attention", "K4 Swin nBW512 N20 C96 h3 mask",
-                   lambda: K.window_attention(*sargs, **skw),
-                   lambda: K.window_attention_plain(*sargs, **skw),
-                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(*sargs[:5], am),
-                   ops=window_ops(b * nw, 20, cs, hs),
-                   library=mha(*sargs, (cs // hs) ** -0.5, am),
-                   library_text="F.multi_head_attention_forward, its own d^-0.5")
+
+    nw, n, cs, hs = 64, 20, 96, 3
+    nbw = BATCH * nw
+    table = rand(7 * 9, hs, scale=0.1)
+    rel = torch.from_numpy(window_attn.relative_position_index((4, 5))).to(dev)
+    mask = torch.from_numpy(window_attn.shifted_window_mask(
+        64, 20, (4, 5), 2)).to(dev)
+    require(mask.shape[0] == nw, f"shift mask has {mask.shape[0]} windows, want {nw}")
+    lin = cs ** -0.5
+    ws = (torch.cat([rand(2 * cs, cs, scale=0.05 * lin), rand(cs, cs, scale=lin)]),
+          rand(3 * cs, scale=0.1), rand(cs, cs, scale=lin), rand(cs, scale=0.1))
+    skw = dict(rel_index=rel, mask=mask)
+    am = window_attn.additive_matrix(hs, n, table, rel, mask)
+    scale = (cs // hs) ** -0.5
+    xs = rand(nbw, n, cs)
+    for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = xs.to(dt)
+        args = (x, *ws, table)
+        fargs = (xs, *ws)
+        f32 = dname == "f32"
+        tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                     else (bf16_quanta(1), "1 bf16 quantum of max|plain|"))
+        label = f"K4 Swin stage 1 nBW{nbw} N{n} C{cs} h{hs} mask {dname}"
+        checks.compare("window_attention", label,
+                       lambda: K.window_attention(*args[:5], hs, bias_table=table, **skw),
+                       lambda: K.window_attention_plain(*args[:5], hs, bias_table=table,
+                                                        **skw),
+                       tol, text, inputs=(*args[:5], am),
+                       ops=window_ops(nbw, n, cs, hs),
+                       library=mha(*fargs, hs, scale, am),
+                       library_text="F.multi_head_attention_forward f32, its own "
+                                    "d^-0.5" + ("" if f32 else ", on x upcast "
+                                                "beforehand"))
+        go = rand(nbw, n, cs, dtype=dt)
+        grads = (f32_tol,) * 6 if f32 else (bf16_quanta(1),) + (f32_tol,) * 5
+        checks.compare("window_attention", f"K4 backward, same, {dname}",
+                       k4_grads(K.window_attention_fused, args, hs, skw, go),
+                       k4_grads(K.window_attention_plain, args, hs, skw, go),
+                       grads, f"dx {text}; d_qkv_w, d_qkv_b, d_proj_w, d_proj_b, "
+                              f"d_table 1e-4 x max(1,|plain|)",
+                       inputs=(*args, go), ops=window_bwd_ops(nbw, n, cs, hs),
+                       library=mha_bwd(fargs, hs, scale, am, go.float()),
+                       library_text="autograd.grad of F.multi_head_attention_forward "
+                                    "f32 alone, to x and the four projections")
+        del x, go
+    torch.cuda.empty_cache()
 
 
 def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
@@ -951,7 +1026,12 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
     log(f"phase {phase}: full-width {family} forward, batch {batch}")
     model, flat = seeded_model(family, seed)
     model = model.eval().to(dev)
+    # (K1, K4) calls a forward makes: the transformer families run K1 in
+    # every layer under bf16 and K4 under f32; the Swin K4 in every block
     layers = sum(type(m).__name__ == "Block" for m in model.modules())
+    windows = sum(type(m).__name__ == "WindowAttention" for m in model.modules())
+    want = ({"f32": (0, windows), "bf16": (0, windows)} if family == "swin"
+            else {"f32": (0, layers), "bf16": (layers, 0)})
     x = np.random.default_rng(seed + 1).standard_normal(
         (batch, 256, 80, 10)).astype(np.float32)
     xt = torch.from_numpy(x).to(dev)
@@ -977,7 +1057,7 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
             sum_err = (p.sum(-1) - 1).abs().max().item()
             require(sum_err < 1e-4, f"{name}/{impl}: probs sum off by {sum_err}")
             if impl == "kernel":
-                want_k1, want_k4 = (layers, 0) if name == "bf16" else (0, layers)
+                want_k1, want_k4 = want[name]
                 require(counts["transformer_block"] == want_k1,
                         f"{name}: K1 launches {counts}, want {want_k1}")
                 require(counts["window_attention"] == want_k4,
@@ -1076,7 +1156,7 @@ def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
             f"diff to the phase-3 forward {worst:.3e} (bound {tol}); "
             f"stats {json.dumps(stats)}")
         del model
-    counts = {k: K.LAUNCHES[k] for k in SERVE_KERNELS}
+    counts = {k: K.LAUNCHES[k] for k in SERVE_KERNELS[family]}
     log(f"  main-path launches: {counts}")
     missing = [k for k, v in counts.items() if v == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
@@ -1092,7 +1172,8 @@ ZERO_GRAD = re.compile(
     r"(decoder/block_\d/conv\d_\d|hybrid/convtmp_\d)/bias$|attn/key_bias$")
 
 # (family, dtype, train attention, cli flags): phase 5 runs them all, phase
-# 6 the ones marked True
+# 6 the ones marked True.  The Swin has no train-attention choice: it
+# trains on K4 ('k4' labels its runs; its config ignores the field)
 TRAIN_RUNS = (
     ("transunet", "f32", "xla", [], True),
     ("transunet", "f32", "flash", ["--attn-train", "flash"], True),
@@ -1102,13 +1183,16 @@ TRAIN_RUNS = (
     ("vit", "f32", "flash", ["--attn-train", "flash"], False),
     ("vit", "f32", "pallas", ["--attn-train", "pallas"], True),
     ("vit", "bf16", "pallas", ["--bf16", "--attn-train", "pallas"], False),
-    ("vit", "bf16", "flash", ["--bf16", "--attn-train", "flash"], True))
+    ("vit", "bf16", "flash", ["--bf16", "--attn-train", "flash"], True),
+    ("swin", "f32", "k4", [], True),
+    ("swin", "bf16", "k4", ["--bf16"], True))
 
 
 def needed_kernels(family: str, impl: str):
     """The train kernels a step of this family and attention launches."""
     return ((K2_KERNELS if family == "transunet" else ())
-            + {"flash": K3_KERNELS, "pallas": K5_KERNELS}.get(impl, ()))
+            + {"flash": K3_KERNELS, "pallas": K5_KERNELS,
+               "k4": K4_KERNELS}.get(impl, ()))
 
 
 def phase_train_step(dev, seed: int):
@@ -1118,6 +1202,7 @@ def phase_train_step(dev, seed: int):
     from ultrasound_modeling_tpu_torch.config import default_config
     from ultrasound_modeling_tpu_torch.data import synthetic
     from ultrasound_modeling_tpu_torch.data.labels import label2vec
+    from ultrasound_modeling_tpu_torch.models.swin import set_drop_path_generator
     from ultrasound_modeling_tpu_torch.ops import kernels as K
     from ultrasound_modeling_tpu_torch.train import losses
     from ultrasound_modeling_tpu_torch.train.optim import Adam
@@ -1144,11 +1229,15 @@ def phase_train_step(dev, seed: int):
         kernels = losses.l2_kernels(model) if l2 else []
         res = {}
         # deterministic cuDNN for the comparison: its default weight-gradient
-        # algorithms sum in an order that changes from run to run
+        # algorithms sum in an order that changes from run to run; the
+        # Swin's drop-path masks drawn from one generator state per route
         torch.backends.cudnn.deterministic = True
+        drop = torch.Generator(device=dev)
+        set_drop_path_generator(model, drop)
         for route in ("kernel", "plain"):
             model.set_train_route(route)
             model.zero_grad(set_to_none=True)
+            drop.manual_seed(seed + 5)
             K.reset_launch_counts()
             loss = losses.cce_smooth(label2vec(y), model(x).float())
             if l2:
@@ -1206,7 +1295,8 @@ def phase_train_step(dev, seed: int):
         # the whole step (augmentation on), the two routes in turns
         model.zero_grad(set_to_none=True)
         state = TrainState(model, Adam(model.parameters(), 1.0), 0,
-                           torch.Generator(device=dev).manual_seed(seed))
+                           torch.Generator(device=dev).manual_seed(seed),
+                           torch.Generator(device=dev).manual_seed(seed + 1))
         step = make_train_step(model, losses.cce_smooth, l2_scale=l2)
         per = {"kernel": [], "plain": []}
         for route in ("plain", "kernel", "kernel", "plain"):
@@ -1239,7 +1329,7 @@ def phase_cli_train(dev, seed: int, tmp: str):
     from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
 
     log("phase 6: cli train --synthetic --epochs 1")
-    total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS}
+    total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS + K4_KERNELS}
     for family, dtype, impl, flags, in_cli in TRAIN_RUNS:
         if not in_cli:
             continue
@@ -1364,7 +1454,8 @@ def main(argv=None) -> int:
         phase_vit_kernels(checks, dev, args.seed)
         phase_gemm(checks, dev, args.seed)
         with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
-            for family, phase in (("transunet", "3"), ("vit", "3b")):
+            for family, phase in (("transunet", "3"), ("vit", "3b"),
+                                  ("swin", "3c")):
                 x, ref, flat = phase_forward(dev, args.seed, BATCH, family, phase)
                 add(phase_serve(dev, x, ref, flat, tmp, family,
                                 phase.replace("3", "4")))

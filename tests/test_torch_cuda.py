@@ -127,6 +127,60 @@ def test_window_attention_matches_plain_with_bias_and_mask(cuda):
                                rtol=1e-4, atol=1e-4)
 
 
+def _swin_k4_args(g, dev, nbw=128, dtype=torch.float32):
+    """K4 at a Swin stage-1 slice: 4x5 windows, C 96, 3 heads, the bias
+    table and the shift mask of a 64x20 grid (64 windows)."""
+    c, heads = 96, 3
+    args = [_rand(g, dev, nbw, 20, c, dtype=dtype),
+            _rand(g, dev, 3 * c, c, scale=0.1), _rand(g, dev, 3 * c, scale=0.1),
+            _rand(g, dev, c, c, scale=0.1), _rand(g, dev, c, scale=0.1),
+            _rand(g, dev, 63, heads, scale=0.1)]
+    rel = torch.from_numpy(relative_position_index((4, 5))).to(dev)
+    mask = torch.from_numpy(shifted_window_mask(64, 20, (4, 5), 2)).to(dev)
+    return args, heads, rel, mask
+
+
+@pytest.mark.cuda
+def test_window_attention_bf16_input_matches_plain(cuda):
+    """A bf16 x with f32 weights: the kernel returns bf16 within 1 bf16
+    quantum of max|plain|."""
+    args, heads, rel, mask = _swin_k4_args(torch.Generator().manual_seed(4),
+                                           cuda, dtype=BF)
+    kw = dict(bias_table=args[5], rel_index=rel, mask=mask)
+    got = K.window_attention(*args[:5], heads, **kw)
+    want = K.window_attention_plain(*args[:5], heads, **kw)
+    assert got.dtype == want.dtype == BF
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= want.float().abs().max().item() / 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_window_attention_backward_matches_plain_autograd(cuda, dtype):
+    """WindowAttentionFused (the kernel forward, the PyTorch recompute
+    backward) against autograd through the plain version: the gradients of
+    x, both projections, both biases and the bias table within 1e-4 x
+    max(1, max|plain|) (f32) or 1 bf16 quantum of max|plain| (dx under a
+    bf16 x)."""
+    args, heads, rel, mask = _swin_k4_args(torch.Generator().manual_seed(5),
+                                           cuda, dtype=dtype)
+    for t in args:
+        t.requires_grad_()
+    go = _rand(torch.Generator().manual_seed(6), cuda, *args[0].shape,
+               dtype=dtype)
+    grads = []
+    for fn in (K.window_attention_fused, K.window_attention_plain):
+        K.reset_launch_counts()
+        out = fn(*args[:5], heads, bias_table=args[5], rel_index=rel, mask=mask)
+        grads.append(torch.autograd.grad(out, args, go))
+        assert K.LAUNCHES["window_attention"] == (fn is K.window_attention_fused)
+    for i, (got, want) in enumerate(zip(*grads)):
+        assert got.dtype == want.dtype == args[i].dtype
+        tol = (_f32_tol(want) if got.dtype == torch.float32
+               else want.float().abs().max().item() / 256)
+        assert (got.float() - want.float()).abs().max().item() <= tol, i
+
+
 @pytest.mark.cuda
 def test_transformer_block_matches_plain(cuda):
     g = torch.Generator().manual_seed(4)

@@ -5,7 +5,11 @@
 // the TransUNet f32 serving path every Attention at eval runs it with each
 // batch element as one 80-token "window" and zero bias
 // (models/transunet.py:85-96); Swin (N = 20 windows, relative-position bias,
-// shifted mask) is its other user.
+// shifted mask) is its other user, in serving and training.  A bf16 x (the
+// Swin under bf16) is upcast once in the wrapper (exact) and the projection
+// stores bf16, so the products stay f32 as in _window_attn_kernel; the
+// backward is PyTorch (ops/kernels.py window_attention_bwd), as
+// _fused_attn_bwd is XLA.
 //
 // Decomposition (ops/kernels.py window_attention sequences them):
 //   GEMM(qkv, +b, f32) -> attention core (+ per-(window mod nW, head)

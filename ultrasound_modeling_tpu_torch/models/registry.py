@@ -1,7 +1,7 @@
 """Model zoo keyed by config name (PyTorch port of ``models/registry.py``).
 
 Takes the port's ``ModelConfig`` (``config.py``, a copy of the JAX
-package's).  ``transunet`` and ``vit`` are ported so far.
+package's).  ``transunet``, ``vit`` and ``swin`` are ported so far.
 """
 
 from __future__ import annotations
@@ -12,9 +12,8 @@ from ultrasound_modeling_tpu_torch.config import ModelConfig
 
 # the other families and the ROADMAP item that ports each
 _NOT_YET = {
-    "resnest_unet": "ROADMAP Queue 1 item 10 (ResNeStUNet)",
-    "swin": "ROADMAP Queue 1 item 10 (models/swin.py)",
-    "mobileunet": "ROADMAP Queue 1 item 10 (models/mobileunet.py)",
+    "resnest_unet": "ROADMAP Queue 1 item 7 (ResNeStUNet)",
+    "mobileunet": "ROADMAP Queue 1 item 8 (models/mobileunet.py)",
 }
 
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
@@ -68,6 +67,17 @@ def build_model(cfg: ModelConfig) -> torch.nn.Module:
             kpaths=cfg.kpaths, ksize=cfg.ksize, in_channels=cfg.in_channels,
             attn_impl=_attn_impl(cfg.attn_impl),
             attn_train_impl=_attn_train_impl(cfg.attn_train_impl),
+            compute_dtype=_DTYPES[cfg.compute_dtype])
+    if name == "swin":
+        # the JAX Swin has no dropout and no train-attention choice: its
+        # attn_impl drives eval and train alike
+        from ultrasound_modeling_tpu_torch.models.swin import SwinSegmenter
+        return SwinSegmenter(
+            num_classes=cfg.num_classes, img_size=tuple(cfg.img_size),
+            in_channels=cfg.in_channels, embed_dim=cfg.swin_embed_dim,
+            depths=tuple(cfg.swin_depths), num_heads=tuple(cfg.swin_heads),
+            window=tuple(cfg.window), drop_path_rate=cfg.drop_path_rate,
+            attn_impl=_attn_impl(cfg.swin_attn_impl),
             compute_dtype=_DTYPES[cfg.compute_dtype])
     if name in _NOT_YET:
         raise NotImplementedError(

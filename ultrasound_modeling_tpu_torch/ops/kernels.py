@@ -13,11 +13,15 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   epilogue) and ``attention_core`` (``csrc/transformer_block.cu``).
 * **K4** ``window_attention`` — replaces ``window_attention_fused``
   (``pallas_kernels.py:83``; ``pl.pallas_call`` in
-  ``_fused_attn_fwd_pallas`` ``:158``), the f32 attention that f32 serving
-  runs in every layer.  Built from ``linear`` (``wa_linear``: the same
-  GEMM on f32 operands as 3xTF32 ``wgmma``, the f32 contract on the tensor
-  cores) and ``attention_core`` with an additive matrix
-  (``csrc/window_attention.cu``).
+  ``_fused_attn_fwd_pallas`` ``:158``): the Swin's window attention, and
+  the attention that f32 serving of the TransUNet and the ViT runs in every
+  layer.  ``x`` is float32 or bfloat16, the weights float32, the products
+  f32 and the output in x's dtype.  Built from ``linear`` (``wa_linear``:
+  the same GEMM on f32 operands as 3xTF32 ``wgmma``, the f32 contract on
+  the tensor cores) and ``attention_core`` with an additive matrix
+  (``csrc/window_attention.cu``); ``WindowAttentionFused`` adds the
+  recompute backward in PyTorch, as ``_fused_attn_bwd`` (``:206``) is XLA
+  in the JAX package.
 * **K2** ``group_flat_norm`` — replaces ``group_flat_norm``
   (``pallas_kernels.py:1113``; ``_gfn_fwd_pallas`` ``:1037`` and
   ``_gfn_bwd_pallas`` ``:1066``), the per-branch LayerNorm with the folded
@@ -458,16 +462,54 @@ def transformer_block(x: torch.Tensor, w: BlockWeights, num_heads: int,
 
 
 # ---------------------------------------------------------------------------
-# K4: f32 window attention
+# K4: window attention, f32 products on an f32 or bf16 input
 # ---------------------------------------------------------------------------
 
 def window_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                            bias_table=None, rel_index=None, mask=None,
                            scale=None) -> torch.Tensor:
-    ctx = window_attn.window_attention(x, qkv_w, qkv_b, bias_table,
+    """The plain version of :func:`window_attention`, differentiable by
+    autograd (the plain route of :func:`window_attention_fused`)."""
+    ctx = window_attn.window_attention(x.float(), qkv_w, qkv_b, bias_table,
                                        rel_index, num_heads, mask, scale)
-    return linear_plain(ctx.reshape(-1, x.shape[-1]), proj_w,
-                        proj_b).reshape(x.shape)
+    return linear_plain(ctx.reshape(-1, x.shape[-1]), proj_w, proj_b,
+                        out_dtype=x.dtype).reshape(x.shape)
+
+
+def _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, addmask,
+                      scale, lin, core):
+    # a bf16 x upcasts exactly; qkv, P and the context stay f32 and the
+    # projection's f32 sums round once to x's dtype (pallas_kernels.py:62-79)
+    nbw, n, c = x.shape
+    qkv = lin(x.reshape(nbw * n, c).float(), qkv_w, qkv_b)
+    ctx = core(qkv, n, num_heads, scale, addmask=addmask)
+    return lin(ctx, proj_w, proj_b, out_dtype=x.dtype).reshape(nbw, n, c)
+
+
+def window_attention_fwd(x: torch.Tensor, qkv_w: torch.Tensor,
+                         qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
+                         proj_b: Optional[torch.Tensor], num_heads: int,
+                         addmask: Optional[torch.Tensor],
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """K4 forward with its additive matrix given (``window_attn.
+    additive_matrix``: ``[nW, heads, N, N]`` float32, window ``b`` adds
+    ``addmask[b % nW]``); arguments and result as :func:`window_attention`."""
+    nbw, n, c = x.shape
+    _check(x, "x", (_F32, _BF16))
+    _check(qkv_w, "qkv_w", (_F32,), (3 * c, c))
+    _check(proj_w, "proj_w", (_F32,), (c, c))
+    for name, b, width in (("qkv_b", qkv_b, 3 * c), ("proj_b", proj_b, c)):
+        if b is not None:
+            _check(b, name, (_F32,), (width,))
+    _check_attention_shape(nbw * n, n, 3 * c, num_heads, addmask)
+    scale = float((c // num_heads) ** -0.5 if scale is None else scale)
+    if not _on_cuda(x, qkv_w, qkv_b, proj_w, proj_b, addmask):
+        return _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                 addmask, scale, linear_plain,
+                                 attention_core_plain)
+    LAUNCHES["window_attention"] += 1
+    return _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                             addmask, scale, linear, attention_core)
 
 
 def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,
@@ -477,29 +519,98 @@ def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,
                      rel_index: Optional[torch.Tensor] = None,
                      mask: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """K4: fused window MSA forward, f32.  ``x [nBW, N, C]``; ``qkv_w
-    [3C, C]``, ``proj_w [C, C]`` (``Linear`` layout); optional
-    relative-position ``bias_table [(2wh-1)(2ww-1), heads]`` gathered
-    through ``rel_index [N, N]``, optional shifted-window ``mask [nW, N,
-    N]``; ``scale`` defaults to ``d**-0.5``.  Returns the projected output
-    ``[nBW, N, C]``."""
-    nbw, n, c = x.shape
-    _check(x, "x", (_F32,))
-    _check(qkv_w, "qkv_w", (_F32,), (3 * c, c))
-    _check(proj_w, "proj_w", (_F32,), (c, c))
-    addmask = window_attn.additive_matrix(num_heads, n, bias_table,
+    """K4: fused window MSA forward.  ``x [nBW, N, C]`` float32 or
+    bfloat16; ``qkv_w [3C, C]``, ``proj_w [C, C]`` (``Linear`` layout) and
+    the biases float32; optional relative-position ``bias_table
+    [(2wh-1)(2ww-1), heads]`` gathered through ``rel_index [N, N]``,
+    optional shifted-window ``mask [nW, N, N]``; ``scale`` defaults to
+    ``d**-0.5``.  qkv, the probabilities and the context are float32 and
+    both projections f32 products; returns the projected output ``[nBW, N,
+    C]`` in x's dtype."""
+    addmask = window_attn.additive_matrix(num_heads, x.shape[1], bias_table,
                                           rel_index, mask)
-    _check_attention_shape(nbw * n, n, 3 * c, num_heads, addmask)
-    if not _on_cuda(x, qkv_w, qkv_b, proj_w, proj_b, addmask):
-        return window_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b,
-                                      num_heads, bias_table, rel_index, mask,
-                                      scale)
+    return window_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                                addmask, scale)
+
+
+def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
+                         scale):
+    """K4's backward (``_fused_attn_bwd``, ``pallas_kernels.py:206-235``)
+    from the saved inputs and the output gradient ``g``: qkv, the scores
+    ``scale * q.k^T + addmask``, P and the context recomputed in float32,
+    then ``(dx, d_qkv_w, d_qkv_b, d_proj_w, d_proj_b, d_addmask)``: dx in
+    x's dtype, the rest float32; ``d_addmask [nW, heads, N, N]`` sums dS
+    over the windows that share a mask variant.  PyTorch products (f32
+    under ``full_f32_matmuls``), as the JAX backward is XLA."""
+    nbw, n, c = x.shape
+    d = c // num_heads
+    x2 = x.reshape(nbw * n, c).float()
+    qkv = x2 @ qkv_w.t()
+    if qkv_b is not None:
+        qkv = qkv + qkv_b
+    q, k, v = qkv.view(nbw, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    s = scale * (q @ k.transpose(-1, -2))                   # [nBW, h, N, N]
+    nw = 1 if addmask is None else addmask.shape[0]
+    if addmask is not None:
+        s = (s.view(nbw // nw, nw, num_heads, n, n) + addmask).view(s.shape)
+    p = torch.softmax(s, dim=-1)
+    o = (p @ v).transpose(1, 2).reshape(nbw * n, c)
+    g2 = g.reshape(nbw * n, c).float()
+    d_proj_w = g2.t() @ o
+    d_proj_b = g2.sum(0)
+    do = (g2 @ proj_w).view(nbw, n, num_heads, d).transpose(1, 2)
+    dp = do @ v.transpose(-1, -2)
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    d_addmask = (None if addmask is None else
+                 ds.view(nbw // nw, nw, num_heads, n, n).sum(0))
+    dq = scale * (ds @ k)
+    dk = scale * (ds.transpose(-1, -2) @ q)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(nbw * n,
+                                                                    3 * c)
+    d_qkv_b = None if qkv_b is None else dqkv.sum(0)
+    dx = (dqkv @ qkv_w).to(x.dtype).view(x.shape)
+    return dx, dqkv.t() @ x2, d_qkv_b, d_proj_w, d_proj_b, d_addmask
+
+
+class WindowAttentionFused(torch.autograd.Function):
+    """K4 with its recompute backward (``_fused_attn_core``'s custom VJP):
+    the forward (the kernel's wrapper) saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, addmask, num_heads,
+                scale):
+        ctx.attn = (num_heads, scale)
+        ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, addmask)
+        return window_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b,
+                                    num_heads, addmask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, qkv_w, qkv_b, proj_w, addmask = ctx.saved_tensors
+        grads = window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g,
+                                     *ctx.attn)
+        return (*(d if need else None
+                  for d, need in zip(grads, ctx.needs_input_grad)), None, None)
+
+
+def window_attention_fused(x: torch.Tensor, qkv_w: torch.Tensor,
+                           qkv_b: Optional[torch.Tensor], proj_w: torch.Tensor,
+                           proj_b: Optional[torch.Tensor], num_heads: int,
+                           bias_table: Optional[torch.Tensor] = None,
+                           rel_index: Optional[torch.Tensor] = None,
+                           mask: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable K4 with :func:`window_attention`'s contract
+    (``pallas_kernels.window_attention_fused``): gradients to x, both
+    projections and their biases, and through the additive matrix's gather
+    to the bias table."""
+    addmask = window_attn.additive_matrix(num_heads, x.shape[1], bias_table,
+                                          rel_index, mask)
     if scale is None:
-        scale = (c // num_heads) ** -0.5
-    LAUNCHES["window_attention"] += 1
-    qkv = linear(x.reshape(nbw * n, c), qkv_w, qkv_b)
-    ctx = attention_core(qkv, n, num_heads, float(scale), addmask=addmask)
-    return linear(ctx, proj_w, proj_b).reshape(nbw, n, c)
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    return WindowAttentionFused.apply(x.contiguous(), qkv_w, qkv_b, proj_w,
+                                      proj_b, addmask, num_heads, float(scale))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Windowed (Swin-style) attention helpers (PyTorch port of
-``ops/window_attn.py``): the static relative-position index, the static
-shifted-window mask, and the plain window attention that the fused kernel
-(``ops/kernels.window_attention``) is held against.
+``ops/window_attn.py``): window partition and its inverse, the static
+relative-position index, the static shifted-window mask, and the plain
+window attention that the fused kernel (``ops/kernels.window_attention``)
+is held against.
 
 Weights use torch's ``Linear`` layout (``qkv_w [3C, C]``); activations keep
 the JAX layout ``[nBW, N, C]`` (nBW = batch * num_windows, window-major
@@ -14,6 +15,25 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def window_partition(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[B * nH * nW, wh * ww, C]``, windows row-major
+    within each batch element."""
+    b, h, w, c = x.shape
+    wh, ww = window
+    x = x.reshape(b, h // wh, wh, w // ww, ww, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, wh * ww, c)
+
+
+def window_reverse(windows: torch.Tensor, window: Tuple[int, int],
+                   h: int, w: int) -> torch.Tensor:
+    """Inverse of :func:`window_partition`: ``[B*nH*nW, wh*ww, C]`` ->
+    ``[B, H, W, C]``."""
+    wh, ww = window
+    c = windows.shape[-1]
+    x = windows.reshape(-1, h // wh, w // ww, wh, ww, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, h, w, c)
 
 
 def relative_position_index(window: Tuple[int, int]) -> np.ndarray:

@@ -6,16 +6,22 @@ forward and train step, one line per cell, on the card.
 A cell is a family and ``serve-{f32,bf16}`` (the kernel path's forward at
 batch 64) or ``train-{f32,bf16}-{composed,flash,pallas}`` (the whole train
 step, kernel route, augmentation on, at the family's batch: ViT 8,
-TransUNet 32).  The ViT runs every cell, the TransUNet its f32 composed and
-bf16 flash train steps.  Each cell runs 3 warm-ups, then 5 unprofiled
+TransUNet 32, Swin 32); a trailing ``-plain`` takes the plain train
+route instead.  The ViT runs every cell, the TransUNet its f32 composed
+and bf16 flash train steps, the Swin both serving cells and its f32 and
+bf16 train steps (``k4``: it trains on K4 and its backward, drop path on),
+the f32 one also on the plain route.  Each cell runs 3 warm-ups, then 5
+unprofiled
 repetitions (host clock around ``synchronize``: the wall ms), then 3
 profiled ones.  Device ms is the kernels' summed time per repetition; idle
 = 1 - device / unprofiled wall.  The columns split the device time into the
 attention forward kernel (``attention_fwd_kernel``: K1's, K4's and K5's
 cores and K3's forward), K3's backward passes (``fa_bwd_*``), the port's
 GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``) and K2
-(``gfn_*``: forward, backward and its column reduce), and list the three
-largest kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
+(``gfn_*``: forward, backward and its column reduce), give the device time
+of K4's PyTorch backward (the kernels under autograd's
+``WindowAttentionFusedBackward`` node), and list the three largest
+kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ CELLS = (("vit", "serve-f32"), ("vit", "serve-bf16"),
          ("vit", "train-f32-composed"), ("vit", "train-f32-flash"),
          ("vit", "train-f32-pallas"), ("vit", "train-bf16-flash"),
          ("vit", "train-bf16-pallas"),
-         ("transunet", "train-f32-composed"), ("transunet", "train-bf16-flash"))
+         ("transunet", "train-f32-composed"), ("transunet", "train-bf16-flash"),
+         ("swin", "serve-f32"), ("swin", "serve-bf16"), ("swin", "train-f32-k4"),
+         ("swin", "train-f32-k4-plain"), ("swin", "train-bf16-k4"))
 GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k3_bwd": ("fa_bwd_query_kernel", "fa_bwd_key_kernel"),
           "port_gemm": ("linear_wgmma_kernel",),
@@ -75,17 +83,18 @@ def _cell_fn(family: str, cell: str, device):
             with torch.inference_mode():
                 model(x)
         return serve, SERVE_BATCH
-    _, dtype, impl = parts
+    dtype, impl = parts[1:3]
     impl = {"composed": "xla"}.get(impl, impl)
     model = _model(family, dtype, impl, device).train()
-    model.set_train_route("kernel")
+    model.set_train_route("plain" if parts[3:] == ["plain"] else "kernel")
     cfg = default_config(family)
     bs = cfg.train.batch_size
     raw = synthetic.make_raw_array(bs, SEED + 2)
     x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(device)
     y = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(device)
     state = TrainState(model, Adam(model.parameters(), 1.0), 0,
-                       torch.Generator(device=device).manual_seed(SEED))
+                       torch.Generator(device=device).manual_seed(SEED),
+                       torch.Generator(device=device).manual_seed(SEED + 1))
     step = make_train_step(model, losses.cce_smooth,
                            l2_scale=cfg.train.l2_regularization)
     return (lambda: step(state, x, y, 1e-4)), bs
@@ -109,12 +118,15 @@ def profile_cell(family: str, cell: str, device) -> dict:
         torch.cuda.synchronize()
     kernels = {}
     launches = 0
+    k4_bwd_us = 0.0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = ev.device_time_total if hasattr(ev, "device_time_total") \
                 else ev.cuda_time_total
             kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3 / reps
             launches += 1
+        elif ev.name == "WindowAttentionFusedBackward":
+            k4_bwd_us += ev.device_time_total
     device_ms = sum(kernels.values())
     groups = {g: sum(ms for n, ms in kernels.items() if any(k in n for k in keys))
               for g, keys in GROUPS.items()}
@@ -123,6 +135,7 @@ def profile_cell(family: str, cell: str, device) -> dict:
             "frames_per_s": 1e3 * frames / wall, "device_ms": device_ms,
             "idle": 1.0 - device_ms / wall, "launches": launches / reps,
             **{f"{g}_ms": ms for g, ms in groups.items()},
+            "k4_bwd_ms": k4_bwd_us / 1e3 / reps,
             "top": [(n[:60], ms) for n, ms in top]}
 
 

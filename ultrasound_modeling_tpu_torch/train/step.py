@@ -11,12 +11,13 @@ graph of the step is later work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ultrasound_modeling_tpu_torch.data import augment as aug_mod
 from ultrasound_modeling_tpu_torch.data import labels as labels_mod
+from ultrasound_modeling_tpu_torch.models.swin import set_drop_path_generator
 from ultrasound_modeling_tpu_torch.train import losses as losses_mod
 from ultrasound_modeling_tpu_torch.train import metrics as metrics_mod
 from ultrasound_modeling_tpu_torch.train.optim import Adam
@@ -27,25 +28,35 @@ from ultrasound_modeling_tpu_torch.utils.checkpoint import (
 @dataclasses.dataclass
 class TrainState:
     """The model (params and BatchNorm running statistics), the optimizer
-    state, the step count and the augmentation generator."""
+    state, the step count, the augmentation generator and the generator
+    the model's ``DropPath`` layers draw from in train mode (the Swin's;
+    set on them here)."""
 
     model: torch.nn.Module
     opt: Adam
     step: int
     gen: torch.Generator
+    drop_gen: Optional[torch.Generator] = None
+
+    def __post_init__(self):
+        set_drop_path_generator(self.model, self.drop_gen)
 
     @classmethod
     def create(cls, model: torch.nn.Module, seed: int, device,
                clip_norm=1.0) -> "TrainState":
         """Seeded initial weights (``random_flax_variables``: He-normal
-        kernels, through the weight bridge) on ``device``; the generator
-        lives on the same device, so augmentation never leaves it."""
+        kernels, through the weight bridge) on ``device``; both generators
+        live on the same device, so augmentation and stochastic depth never
+        leave it (the drop-path one seeded ``seed + 1``, a stream apart
+        from the augmentation's)."""
         model.load_state_dict(
             from_flax(random_flax_variables(model, seed), model.family),
             strict=True)
         model.to(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return cls(model, Adam(model.parameters(), clip_norm), 0, gen)
+        drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
+        return cls(model, Adam(model.parameters(), clip_norm), 0, gen,
+                   drop_gen)
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,

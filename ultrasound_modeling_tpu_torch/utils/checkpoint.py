@@ -19,10 +19,13 @@ mechanical.  Per leaf:
   ``conv_transpose2d`` is the true transpose — see models/common.py).
   Which modules are transposed depends on the family (``family``
   argument): the TransUNet's ``up`` and ``head``; none in the ViT, whose
-  ``head`` is a plain 3x3 conv;
+  ``head`` is a plain 3x3 conv; the Swin's ``up_{i}``, ``up_final1`` and
+  ``head``;
 * Dense ``kernel`` ``[in, out]``  -> ``weight`` ``[out, in]``; the attention's
   ``{query,key,value,out}_kernel`` / ``_bias`` become the ``weight`` / ``bias``
-  of the ``query`` / ``key`` / ``value`` / ``out`` linears;
+  of the ``query`` / ``key`` / ``value`` / ``out`` linears, and the Swin
+  attention's raw ``{qkv,proj}_kernel`` / ``_bias`` those of its ``qkv`` /
+  ``proj`` linears;
 * norm ``scale``                  -> ``weight``; BatchNorm ``mean`` / ``var``
   (``batch_stats``)               -> ``running_mean`` / ``running_var``;
 * the ``nn.scan``-stacked ``encoder/blocks/block/...`` ``[L, ...]`` leaves
@@ -37,28 +40,31 @@ exactly.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
-# flax module names that are ConvTranspose layers, per family
-# (models/transunet.py DecoderBlock.up, DecoderCup.head; the ViT has none).
-CONV_TRANSPOSE = {"transunet": frozenset({"up", "head"}),
-                  "vit": frozenset()}
+# flax module names that are ConvTranspose layers, per family, as a
+# pattern (models/transunet.py DecoderBlock.up, DecoderCup.head; the ViT
+# has none; models/swin.py SwinSegmenter up_{i}, up_final1, head).
+CONV_TRANSPOSE = {"transunet": r"up|head", "vit": None,
+                  "swin": r"up_\d+|up_final1|head"}
 STACKED_PREFIX = "encoder/blocks/block/"
-_ATTN_LEAF = re.compile(r"^(query|key|value|out)_(kernel|bias)$")
-_ATTN_PROJ = ("query", "key", "value", "out")
+_ATTN_LEAF = re.compile(r"^(query|key|value|out|qkv|proj)_(kernel|bias)$")
+_ATTN_PROJ = ("query", "key", "value", "out", "qkv", "proj")
 
 
-def _transposed(family: str) -> frozenset:
+def _transposed(family: str) -> Callable[[str], object]:
+    """Whether a module name of ``family`` is a ConvTranspose layer."""
     if family not in CONV_TRANSPOSE:
         raise ValueError(f"unknown model family {family!r}; the bridge knows "
                          f"{sorted(CONV_TRANSPOSE)}")
-    return CONV_TRANSPOSE[family]
+    pattern = CONV_TRANSPOSE[family]
+    return re.compile(pattern).fullmatch if pattern else (lambda name: None)
 
 
-def _leaf_from_flax(parts, a: np.ndarray, transposed: frozenset):
+def _leaf_from_flax(parts, a: np.ndarray, transposed):
     """(torch path parts, torch array) for one flax leaf."""
     name = parts[-1]
     m = _ATTN_LEAF.match(name)
@@ -68,7 +74,7 @@ def _leaf_from_flax(parts, a: np.ndarray, transposed: frozenset):
             return parts[:-1] + [proj, "weight"], a.T
         return parts[:-1] + [proj, "bias"], a
     if name == "kernel":
-        if len(parts) >= 2 and parts[-2] in transposed:
+        if len(parts) >= 2 and transposed(parts[-2]):
             return parts[:-1] + ["weight"], a[::-1, ::-1].transpose(2, 3, 0, 1)
         if a.ndim == 4:
             return parts[:-1] + ["weight"], a.transpose(3, 2, 0, 1)
@@ -96,13 +102,13 @@ def flax_path(parts, ndim: int):
     return parts
 
 
-def _leaf_to_flax(parts, a: np.ndarray, transposed: frozenset):
+def _leaf_to_flax(parts, a: np.ndarray, transposed):
     """Inverse of :func:`_leaf_from_flax` on one torch leaf."""
     fparts = flax_path(parts, a.ndim)
     if _attn_proj(parts):
         return fparts, a.T if parts[-1] == "weight" else a
     if fparts[-1] == "kernel":
-        if parts[-2] in transposed:
+        if transposed(parts[-2]):
             return fparts, a.transpose(2, 3, 0, 1)[::-1, ::-1]
         return fparts, a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
     return fparts, a
@@ -191,7 +197,8 @@ def random_flax_variables(model: torch.nn.Module,
 
     Kernels are He-normal over their fan-in, norm scales near 1, biases and
     BatchNorm means small, BatchNorm variances in [0.5, 1.5].  The attention
-    query/key kernels are damped by ``QK_DAMP``: random attention saturates
+    query/key kernels (the q and k columns of the Swin's ``qkv_kernel``) are
+    damped by ``QK_DAMP``: random attention saturates
     the softmax and amplifies bf16 rounding chaotically, so the comparisons
     between bf16 paths stay in the smooth regime (as the JAX package's
     kernel tests do)."""
@@ -213,6 +220,8 @@ def random_flax_variables(model: torch.nn.Module,
             v = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
             if name in ("query_kernel", "key_kernel"):
                 v = v * QK_DAMP
+            elif name == "qkv_kernel":     # [C, 3C]: the q and k columns
+                v[:, :2 * shape[1] // 3] *= QK_DAMP
         elif name.endswith("scale"):
             v = 1.0 + 0.1 * rng.standard_normal(shape)
         else:
