@@ -11,7 +11,8 @@ Phases (each checks its results; any failure exits non-zero):
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
    print ptxas's registers and spills of K2's functions; for each function
    of the kernels built on the tensor cores (the
-   attention forward core, both passes of K3's backward, and the wgmma GEMM
+   attention forward core, both passes of K3's backward, K4's backward
+   kernel, and the wgmma GEMM
    behind ``tb_linear`` and ``wa_linear``) print ptxas's registers, spills
    and shared memory and the count of HMMA / HGMMA instructions in its SASS
    (``cuobjdump -sass``), which must not be 0 (the GEMM's bf16 and f32
@@ -29,10 +30,17 @@ Phases (each checks its results; any failure exits non-zero):
    1280, 8 heads), each with and without the folded final LayerNorm; K1's
    and K4's attention cores at both shapes; K4 at the TransUNet and ViT f32
    shapes and at the Swin's stage 1 at b64 (4,096 windows of 20 tokens, C
-   96, 3 heads, bias table and shift mask) with an f32 and a bf16 input,
-   and K4's backward there (autograd through ``WindowAttentionFused``
-   against autograd through the plain version, beside autograd's backward
-   of ``F.multi_head_attention_forward``); K2 (forward and backward, f32 and bf16,
+   96, 3 heads, bias table and shift mask) with an f32 and a bf16 input;
+   K4's backward at the four Swin stages at b64 (N 20 at C 96 / 192 / 384
+   with the shift mask, N 9 at C 768 with the bias table alone): its
+   attention kernel ``wa_attention_bwd`` against its plain version beside
+   SDPA's backward, and the whole backward (autograd through
+   ``WindowAttentionFused``) in f32 and bf16 against autograd through the
+   plain version, beside autograd's backward of
+   ``F.multi_head_attention_forward``; at stage 1 the kernel's two calls
+   bit-equal, the memory the forward keeps for the backward and the
+   backward's peak extra memory, beside the plain route's, and
+   the time of each of its steps; K2 (forward and backward, f32 and bf16,
    LeakyReLU folded, at the eight branch shapes of the flagship's four
    stages at batch 32, each also as device time per launch over inputs
    read in turn past the L2, beside ``F.group_norm`` and autograd's
@@ -69,7 +77,7 @@ Phases (each checks its results; any failure exits non-zero):
    Swin and the Swin ``--bf16`` (batch 32, two steps); the counters are
    zeroed just before each run and read just after: K2 must have launched
    in every TransUNet run, K3 in the flash runs, K5 in the pallas run, K4
-   in the Swin runs; the loss is finite and the weights (and the
+   and its backward kernel in the Swin runs; the loss is finite and the weights (and the
    TransUNet's BatchNorm running statistics) moved;
 7. K6, which no path of the system calls, as a caller uses it: the
    smoothed targets of a batch's labels, against ``label2vec`` plus the
@@ -106,6 +114,8 @@ K1_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:781"
 K4_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:152"
 K1_SRC = f"{PKG}/csrc/transformer_block.cu"
 K4_SRC = f"{PKG}/csrc/window_attention.cu"
+K4B_SRC = f"{PKG}/csrc/window_attention_bwd.cu"
+K4B_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:206"
 K2_SRC = f"{PKG}/csrc/group_flat_norm.cu"
 K3_SRC = f"{PKG}/csrc/flash_attention.cu"
 K2_FWD_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1037"
@@ -121,6 +131,7 @@ BATCH = 64  # the serving batch (cli serve --max-batch default)
 TRAIN_BATCH = {"transunet": 32, "vit": 8, "swin": 32}
 # the kernels each main path must launch
 K4_KERNELS = ("window_attention", "wa_linear", "wa_attention_core")
+K4_TRAIN_KERNELS = K4_KERNELS + ("wa_attention_bwd",)
 SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
                        "tb_attention_core") + K4_KERNELS
                  for fam in ("transunet", "vit")}
@@ -257,10 +268,11 @@ def f32_tol(want):
     return 1e-4 * max(1.0, want.abs().max().item())
 
 
-# the kernel functions built on the tensor cores: the attention kernels and
-# the GEMM of tb_linear (bf16) and wa_linear (f32)
+# the kernel functions built on the tensor cores: the attention kernels (K4's
+# backward among them) and the GEMM of tb_linear (bf16) and wa_linear (f32)
 TENSOR_CORE_KERNELS = ("attention_fwd_kernel", "fa_bwd_query_kernel",
-                       "fa_bwd_key_kernel", "linear_wgmma_kernel")
+                       "fa_bwd_key_kernel", "wa_bwd_kernel",
+                       "linear_wgmma_kernel")
 # each operand type the GEMM is built for must hold wgmma (HGMMA); the
 # names demangled or not
 GEMM_BUILDS = {"bf16": r"linear_wgmma_kernel(<|I13)__nv_bfloat16",
@@ -532,20 +544,21 @@ def k2_per_launch(K, y, go, s, b, gsize, eps, alpha):
     return out
 
 
-def sdpa(qkv, n, heads, scale):
+def sdpa(qkv, n, heads, scale, mask=None):
     """The library yardstick of an attention core: one
     scaled_dot_product_attention call on q, k, v views of the packed
-    projection (timed only; the port never calls it)."""
+    projection, ``mask`` its additive attn_mask (timed only; the port never
+    calls it)."""
     import torch.nn.functional as F
     b, c3 = qkv.shape[0] // n, qkv.shape[1]
     q, k, v = qkv.view(b, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
-    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
-def _sdpa_graph(qkv, go, n, heads, scale):
+def _sdpa_graph(qkv, go, n, heads, scale, mask=None):
     import torch
     x = qkv.detach().requires_grad_()
-    out = sdpa(x, n, heads, scale)
+    out = sdpa(x, n, heads, scale, mask)
     b, h, _, d = out.shape
     return x, out, go.view(b, n, h, d).transpose(1, 2)
 
@@ -557,12 +570,12 @@ def sdpa_grad(qkv, go, n, heads, scale):
     return torch.autograd.grad(out, x, gout)[0]
 
 
-def sdpa_bwd(qkv, go, n, heads, scale):
+def sdpa_bwd(qkv, go, n, heads, scale, mask=None):
     """SDPA's backward alone: the forward runs once, here; each call of the
     function returned runs autograd's backward to the packed projection
     (the graph is kept between calls)."""
     import torch
-    x, out, gout = _sdpa_graph(qkv, go, n, heads, scale)
+    x, out, gout = _sdpa_graph(qkv, go, n, heads, scale, mask)
     return lambda: torch.autograd.grad(out, x, gout, retain_graph=True)[0]
 
 
@@ -754,59 +767,181 @@ def window_bwd_ops(b, s, c, heads):
             *attn(b, heads, s, c // heads, products=6)]
 
 
+# the Swin's four stages at full width: (token grid, window, C, heads,
+# shifted); K4 runs there at N 20, 20, 20 and 9 (stage 4's 8x3 grid padded
+# to 9x3)
+SWIN_STAGES = (((64, 20), (4, 5), 96, 3, True), ((32, 10), (4, 5), 192, 6, True),
+               ((16, 5), (4, 5), 384, 12, True), ((9, 3), (3, 3), 768, 24, False))
+
+
+def swin_stage_inputs(dev, rand, stage):
+    """K4's inputs at a Swin stage, batch 64: x f32 [nBW, N, C], (qkv_w,
+    qkv_b, proj_w, proj_b), the bias table, the kwargs (rel_index, shift
+    mask or None) and the additive matrix [nW, heads, N, N]."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import window_attn
+
+    grid, window, c, heads, shifted = SWIN_STAGES[stage]
+    n = window[0] * window[1]
+    nbw = BATCH * (grid[0] // window[0]) * (grid[1] // window[1])
+    table = rand((2 * window[0] - 1) * (2 * window[1] - 1), heads, scale=0.1)
+    rel = torch.from_numpy(window_attn.relative_position_index(window)).to(dev)
+    mask = (torch.from_numpy(window_attn.shifted_window_mask(
+        *grid, window, 2)).to(dev) if shifted else None)
+    lin = c ** -0.5
+    ws = (torch.cat([rand(2 * c, c, scale=0.05 * lin), rand(c, c, scale=lin)]),
+          rand(3 * c, scale=0.1), rand(c, c, scale=lin), rand(c, scale=0.1))
+    am = window_attn.additive_matrix(heads, n, table, rel, mask)
+    return rand(nbw, n, c), ws, table, dict(rel_index=rel, mask=mask), am
+
+
+def memory_mb(fn):
+    """``fn()``'s result, the device memory still allocated after it beyond
+    what was live before it (what the result holds), and the peak above
+    that base during the call (its outputs included), in MB."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (torch.cuda.memory_allocated() - base) / 1e6,
+            (torch.cuda.max_memory_allocated() - base) / 1e6)
+
+
+def k4_bwd_core_check(checks: Checks, label, x, ws, am, heads):
+    """K4 backward's attention kernel against its plain version, on the
+    qkv and do that its caller computes; returns the kernel's inputs."""
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    nbw, n, c = x.shape
+    scale = (c // heads) ** -0.5
+    qkv = K.linear(x.reshape(-1, c), ws[0], ws[1])
+    do = K.linear(x.flip(0).reshape(-1, c), ws[2].t().contiguous())
+    args = (qkv, do, am, n, heads, scale)
+    mask = am.repeat(nbw // am.shape[0], 1, 1, 1)
+    checks.compare("wa_attention_bwd", label,
+                   lambda: K.window_attention_bwd_core(*args),
+                   lambda: K.window_attention_bwd_core_plain(*args),
+                   (f32_tol,) * 3, "dqkv, o, d_addmask 1e-4 x max(1,|plain|)",
+                   inputs=(qkv, do, am), ops=attn(nbw, heads, n, c // heads,
+                                                  products=6),
+                   library=sdpa_bwd(qkv, do, n, heads, scale, mask),
+                   library_text="SDPA's backward alone to q, k, v, the additive "
+                                "matrix a constant")
+    return args
+
+
+def k4_bwd_split(x, ws, am, heads, go) -> None:
+    """The time of each step of K4's backward on the card (ops/kernels.
+    _window_attention_bwd) at one shape, and of the whole call."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    nbw, n, c = x.shape
+    scale = (c // heads) ** -0.5
+    qkv_w, qkv_b, proj_w = ws[:3]
+    x2, g2 = x.reshape(-1, c).float(), go.reshape(-1, c).float().contiguous()
+    qkv = K.linear(x2, qkv_w, qkv_b)
+    do = K.linear(g2, proj_w.t().contiguous())
+    dqkv, o, _ = K.window_attention_bwd_core(qkv, do, am, n, heads, scale)
+    steps = {
+        "a qkv (wa_linear)": lambda: K.linear(x2, qkv_w, qkv_b),
+        "b do (transpose + wa_linear)": lambda: K.linear(
+            g2, proj_w.t().contiguous()),
+        "c core (wa_attention_bwd)": lambda: K.window_attention_bwd_core(
+            qkv, do, am, n, heads, scale),
+        "d d_proj_w = g^T.o (torch.matmul)": lambda: g2.t() @ o,
+        "d d_qkv_w = dqkv^T.x (torch.matmul)": lambda: dqkv.t() @ x2,
+        "e bias sums (ones-vector products)": lambda: (
+            torch.ones(x2.shape[0], device=x.device) @ dqkv,
+            torch.ones(x2.shape[0], device=x.device) @ g2),
+        "f dx (transpose + wa_linear)": lambda: K.linear(
+            dqkv, qkv_w.t().contiguous(), out_dtype=x.dtype),
+        "whole window_attention_bwd": lambda: K.window_attention_bwd(
+            x, qkv_w, qkv_b, proj_w, am, go, heads, scale),
+        "its PyTorch body (window_attention_bwd_plain)":
+            lambda: K.window_attention_bwd_plain(x, qkv_w, qkv_b, proj_w, am,
+                                                 go, heads, scale)}
+    log(f"  K4 backward steps, nBW{nbw} N{n} C{c} h{heads} {x.dtype} "
+        f"(CUDA-event medians):")
+    for name, fn in steps.items():
+        log(f"    {name:46s} {time_ms(fn):.4f} ms")
+    del qkv, do, dqkv, o
+    torch.cuda.empty_cache()
+
+
 def phase_swin_k4(checks: Checks, dev, rand) -> None:
     """K4 at the Swin's stage-1 shape at b64 (4,096 windows of 4x5 tokens,
     C 96, 3 heads, the bias table and the 64-window shift mask), f32 and
-    bf16 x; then its backward against autograd of the plain version."""
+    bf16 x; at each of the four stages its backward's attention kernel
+    against its plain version and the whole backward against autograd of
+    the plain version, f32 and bf16 x; at stage 1 the kernel's determinism,
+    the backward's steps and its memory beside the plain route's."""
     import torch
     from ultrasound_modeling_tpu_torch.ops import kernels as K
-    from ultrasound_modeling_tpu_torch.ops import window_attn
 
-    nw, n, cs, hs = 64, 20, 96, 3
-    nbw = BATCH * nw
-    table = rand(7 * 9, hs, scale=0.1)
-    rel = torch.from_numpy(window_attn.relative_position_index((4, 5))).to(dev)
-    mask = torch.from_numpy(window_attn.shifted_window_mask(
-        64, 20, (4, 5), 2)).to(dev)
-    require(mask.shape[0] == nw, f"shift mask has {mask.shape[0]} windows, want {nw}")
-    lin = cs ** -0.5
-    ws = (torch.cat([rand(2 * cs, cs, scale=0.05 * lin), rand(cs, cs, scale=lin)]),
-          rand(3 * cs, scale=0.1), rand(cs, cs, scale=lin), rand(cs, scale=0.1))
-    skw = dict(rel_index=rel, mask=mask)
-    am = window_attn.additive_matrix(hs, n, table, rel, mask)
-    scale = (cs // hs) ** -0.5
-    xs = rand(nbw, n, cs)
-    for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        x = xs.to(dt)
-        args = (x, *ws, table)
-        fargs = (xs, *ws)
-        f32 = dname == "f32"
-        tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
-                     else (bf16_quanta(1), "1 bf16 quantum of max|plain|"))
-        label = f"K4 Swin stage 1 nBW{nbw} N{n} C{cs} h{hs} mask {dname}"
-        checks.compare("window_attention", label,
-                       lambda: K.window_attention(*args[:5], hs, bias_table=table, **skw),
-                       lambda: K.window_attention_plain(*args[:5], hs, bias_table=table,
-                                                        **skw),
-                       tol, text, inputs=(*args[:5], am),
-                       ops=window_ops(nbw, n, cs, hs),
-                       library=mha(*fargs, hs, scale, am),
-                       library_text="F.multi_head_attention_forward f32, its own "
-                                    "d^-0.5" + ("" if f32 else ", on x upcast "
-                                                "beforehand"))
-        go = rand(nbw, n, cs, dtype=dt)
-        grads = (f32_tol,) * 6 if f32 else (bf16_quanta(1),) + (f32_tol,) * 5
-        checks.compare("window_attention", f"K4 backward, same, {dname}",
-                       k4_grads(K.window_attention_fused, args, hs, skw, go),
-                       k4_grads(K.window_attention_plain, args, hs, skw, go),
-                       grads, f"dx {text}; d_qkv_w, d_qkv_b, d_proj_w, d_proj_b, "
-                              f"d_table 1e-4 x max(1,|plain|)",
-                       inputs=(*args, go), ops=window_bwd_ops(nbw, n, cs, hs),
-                       library=mha_bwd(fargs, hs, scale, am, go.float()),
-                       library_text="autograd.grad of F.multi_head_attention_forward "
-                                    "f32 alone, to x and the four projections")
-        del x, go
-    torch.cuda.empty_cache()
+    for stage in range(len(SWIN_STAGES)):
+        xs, ws, table, skw, am = swin_stage_inputs(dev, rand, stage)
+        nbw, n, cs = xs.shape
+        hs = SWIN_STAGES[stage][3]
+        scale = (cs // hs) ** -0.5
+        where = (f"Swin stage {stage + 1} nBW{nbw} N{n} C{cs} h{hs} "
+                 f"{'mask' if skw['mask'] is not None else 'bias'}")
+        core = k4_bwd_core_check(checks, f"K4 backward core, {where}", xs, ws,
+                                 am, hs)
+        if stage == 0:
+            a = K.window_attention_bwd_core(*core)
+            b = K.window_attention_bwd_core(*core)
+            same = torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            log(f"  wa_attention_bwd two calls: dqkv and d_addmask "
+                f"{'bit-equal' if same else 'DIFFER'}")
+            require(same, "wa_attention_bwd: two calls on the same inputs differ")
+            del a, b
+        del core
+        for dt, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = xs.to(dt)
+            args = (x, *ws, table)
+            fargs = (xs, *ws)
+            f32 = dname == "f32"
+            tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
+                         else (bf16_quanta(1), "1 bf16 quantum of max|plain|"))
+            if stage == 0:
+                label = f"K4 Swin stage 1 nBW{nbw} N{n} C{cs} h{hs} mask {dname}"
+                checks.compare("window_attention", label,
+                               lambda: K.window_attention(*args[:5], hs,
+                                                          bias_table=table, **skw),
+                               lambda: K.window_attention_plain(
+                                   *args[:5], hs, bias_table=table, **skw),
+                               tol, text, inputs=(*args[:5], am),
+                               ops=window_ops(nbw, n, cs, hs),
+                               library=mha(*fargs, hs, scale, am),
+                               library_text="F.multi_head_attention_forward f32, its "
+                                            "own d^-0.5" + ("" if f32 else ", on x "
+                                                            "upcast beforehand"))
+            go = rand(nbw, n, cs, dtype=dt)
+            grads = (tol,) + (f32_tol,) * 5
+            label = ("K4 backward, same, " + dname if stage == 0
+                     else f"K4 backward, {where} {dname}")
+            fused, fused_held, _ = memory_mb(
+                lambda: k4_grads(K.window_attention_fused, args, hs, skw, go))
+            plain, plain_held, _ = memory_mb(
+                lambda: k4_grads(K.window_attention_plain, args, hs, skw, go))
+            checks.compare("window_attention", label, fused, plain,
+                           grads, f"dx {text}; d_qkv_w, d_qkv_b, d_proj_w, d_proj_b, "
+                                  f"d_table 1e-4 x max(1,|plain|)",
+                           inputs=(*args, go), ops=window_bwd_ops(nbw, n, cs, hs),
+                           library=mha_bwd(fargs, hs, scale, am, go.float()),
+                           library_text="autograd.grad of F.multi_head_attention_forward "
+                                        "f32 alone, to x and the four projections")
+            if stage == 0:
+                peaks = [memory_mb(fn)[2] for fn in (fused, plain)]
+                log(f"  K4 memory, {dname}: the forward keeps {fused_held:.1f} MB "
+                    f"(kernel route) / {plain_held:.1f} MB (plain route) for "
+                    f"the backward, whose peak extra memory is {peaks[0]:.1f} / "
+                    f"{peaks[1]:.1f} MB")
+                k4_bwd_split(x, ws, am, hs, go)
+            del x, go, fused, plain
+        del xs, ws, table, am
+        torch.cuda.empty_cache()
 
 
 def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
@@ -1192,7 +1327,7 @@ def needed_kernels(family: str, impl: str):
     """The train kernels a step of this family and attention launches."""
     return ((K2_KERNELS if family == "transunet" else ())
             + {"flash": K3_KERNELS, "pallas": K5_KERNELS,
-               "k4": K4_KERNELS}.get(impl, ()))
+               "k4": K4_TRAIN_KERNELS}.get(impl, ()))
 
 
 def phase_train_step(dev, seed: int):
@@ -1329,7 +1464,8 @@ def phase_cli_train(dev, seed: int, tmp: str):
     from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
 
     log("phase 6: cli train --synthetic --epochs 1")
-    total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS + K4_KERNELS}
+    total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS
+             + K4_TRAIN_KERNELS}
     for family, dtype, impl, flags, in_cli in TRAIN_RUNS:
         if not in_cli:
             continue
@@ -1474,6 +1610,7 @@ def main(argv=None) -> int:
              "tb_layer_norm": (K1_SRC, K1_TPU), "tb_linear": (K1_SRC, K1_TPU),
              "tb_attention_core": (K1_SRC, K1_TPU),
              "wa_linear": (K4_SRC, K4_TPU), "wa_attention_core": (K4_SRC, K4_TPU),
+             "wa_attention_bwd": (K4B_SRC, K4B_TPU),
              "group_flat_norm_fwd": (K2_SRC, K2_FWD_TPU),
              "group_flat_norm_bwd": (K2_SRC, K2_BWD_TPU),
              "flash_attention_fwd": (K3_SRC, K3_FWD_TPU),

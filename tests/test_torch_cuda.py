@@ -13,7 +13,7 @@ import torch
 
 from ultrasound_modeling_tpu_torch.ops import kernels as K
 from ultrasound_modeling_tpu_torch.ops.window_attn import (
-    relative_position_index, shifted_window_mask)
+    additive_matrix, relative_position_index, shifted_window_mask)
 
 BF = torch.bfloat16
 
@@ -154,16 +154,145 @@ def test_window_attention_bf16_input_matches_plain(cuda):
     assert err <= want.float().abs().max().item() / 256
 
 
+# the Swin's four stages at full width: (grid, window, C, heads, shifted);
+# nW windows of a frame, and nBW = nW x an odd count of frames, so that the
+# backward kernel's last slice of windows is a short one
+SWIN_STAGES = {"stage1": ((64, 20), (4, 5), 96, 3, True),
+               "stage2": ((32, 10), (4, 5), 192, 6, True),
+               "stage3": ((16, 5), (4, 5), 384, 12, True),
+               "stage4": ((9, 3), (3, 3), 768, 24, False)}
+STAGE_FRAMES = {"stage1": 5, "stage2": 7, "stage3": 9, "stage4": 11}
+
+
+def _swin_stage_args(g, dev, stage, dtype=torch.float32):
+    """K4's arguments at a Swin stage: x, the four projections, the bias
+    table; its heads, rel_index and the shift mask (None unshifted)."""
+    grid, window, c, heads, shifted = SWIN_STAGES[stage]
+    n = window[0] * window[1]
+    nw = (grid[0] // window[0]) * (grid[1] // window[1])
+    nbw = nw * STAGE_FRAMES[stage]
+    lin = c ** -0.5
+    args = [_rand(g, dev, nbw, n, c, dtype=dtype),
+            torch.cat([_rand(g, dev, 2 * c, c, scale=0.3 * lin),
+                       _rand(g, dev, c, c, scale=lin)]),
+            _rand(g, dev, 3 * c, scale=0.1), _rand(g, dev, c, c, scale=lin),
+            _rand(g, dev, c, scale=0.1),
+            _rand(g, dev, (2 * window[0] - 1) * (2 * window[1] - 1), heads,
+                  scale=0.5)]
+    rel = torch.from_numpy(relative_position_index(window)).to(dev)
+    mask = (torch.from_numpy(shifted_window_mask(*grid, window, 2)).to(dev)
+            if shifted else None)
+    return args, heads, rel, mask
+
+
+def _window_bwd_core_inputs(stage, with_addmask=True, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    args, heads, rel, mask = _swin_stage_args(g, dev, stage)
+    x, qkv_w, qkv_b, proj_w = args[:4]
+    nbw, n, c = x.shape
+    qkv = K.linear_plain(x.reshape(nbw * n, c), qkv_w, qkv_b)
+    do = _rand(g, dev, nbw * n, c)
+    am = (additive_matrix(heads, n, args[5], rel, mask)
+          if with_addmask else None)
+    return qkv, do, am, n, heads, (c // heads) ** -0.5
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("stage,with_addmask", [
+    ("stage1", True), ("stage2", True), ("stage3", True), ("stage4", False),
+    ("stage4", True)])
+def test_window_attention_bwd_core_matches_plain(cuda, stage, with_addmask):
+    """K4's backward kernel (``wa_attention_bwd``) against its plain version
+    at the four Swin stage shapes (stages 1-3 with the bias table and the
+    shift mask, stage 4's 3x3 windows without an additive matrix and with
+    the bias table alone): dqkv, the context and d_addmask within 1e-4 x
+    max(1, max|plain|); one launch."""
+    inputs = _window_bwd_core_inputs(stage, with_addmask)
+    K.reset_launch_counts()
+    got = K.window_attention_bwd_core(*inputs)
+    assert K.LAUNCHES["wa_attention_bwd"] == 1
+    want = K.window_attention_bwd_core_plain(*inputs)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32, i
+        assert (a - b).abs().max().item() <= _f32_tol(b), i
+
+
+# (N, head dim, heads, variants of the additive matrix or None): every
+# key-tile count the kernel is built for (N <= 8, 16, 24, 32), head dims
+# past one 32-column pass up to 160, and one (18) whose rows are not
+# 16-byte chunks
+WINDOW_BWD_RAGGED = [(5, 32, 2, 2), (16, 32, 3, None), (25, 32, 2, 3),
+                     (32, 32, 1, 1), (20, 64, 2, 2), (20, 160, 2, None),
+                     (9, 18, 2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,heads,nw", WINDOW_BWD_RAGGED)
+def test_window_attention_bwd_core_at_ragged_shapes(cuda, n, d, heads, nw):
+    """The backward kernel away from the Swin's shapes, within its limits:
+    against its plain version within 1e-4 x max(1, max|plain|), on five
+    windows of each variant (the last slice of windows a short one) or 15
+    windows."""
+    g = torch.Generator().manual_seed(11)
+    nbw, c = 15 if nw is None else 5 * nw, heads * d
+    qkv = _rand(g, cuda, nbw * n, 3 * c)
+    do = _rand(g, cuda, nbw * n, c)
+    am = None if nw is None else _rand(g, cuda, nw, heads, n, n)
+    args = (qkv, do, am, n, heads, d ** -0.5)
+    got = K.window_attention_bwd_core(*args)
+    want = K.window_attention_bwd_core_plain(*args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None
+            continue
+        assert (a - b).abs().max().item() <= _f32_tol(b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["stage1", "stage4"])
+def test_window_attention_bwd_core_is_deterministic(cuda, stage):
+    """Two calls on the same inputs give the same bits: d_addmask sums its
+    partials in a fixed order (no float atomics), dqkv has one writer."""
+    inputs = _window_bwd_core_inputs(stage)
+    first = K.window_attention_bwd_core(*inputs)
+    second = K.window_attention_bwd_core(*inputs)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_window_attention_bwd_raises_above_its_limits(cuda):
+    """Windows of 33 tokens: the CUDA branch raises, it does not run the
+    PyTorch backward."""
+    g = torch.Generator().manual_seed(10)
+    c, heads = 32, 1
+    x = _rand(g, cuda, 2, 33, c)
+    qkv_w, proj_w = _rand(g, cuda, 3 * c, c), _rand(g, cuda, c, c)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="at most 32 tokens"):
+        K.window_attention_bwd(x, qkv_w, None, proj_w, None, x, heads, 0.5)
+    with pytest.raises(ValueError, match="at most 32 tokens"):
+        K.window_attention_bwd_core(_rand(g, cuda, 66, 3 * c),
+                                    _rand(g, cuda, 66, c), None, 33, heads, 0.5)
+    assert not any(K.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(SWIN_STAGES))
 @pytest.mark.parametrize("dtype", [torch.float32, BF])
-def test_window_attention_backward_matches_plain_autograd(cuda, dtype):
-    """WindowAttentionFused (the kernel forward, the PyTorch recompute
-    backward) against autograd through the plain version: the gradients of
-    x, both projections, both biases and the bias table within 1e-4 x
-    max(1, max|plain|) (f32) or 1 bf16 quantum of max|plain| (dx under a
-    bf16 x)."""
-    args, heads, rel, mask = _swin_k4_args(torch.Generator().manual_seed(5),
-                                           cuda, dtype=dtype)
+def test_window_attention_backward_matches_plain_autograd(cuda, stage, dtype):
+    """WindowAttentionFused (the kernel forward, the backward with its
+    attention part in one kernel) against autograd through the plain
+    version at the four Swin stage shapes: the gradients of x, both
+    projections, both biases and the bias table within 1e-4 x max(1,
+    max|plain|) (f32) or 1 bf16 quantum of max|plain| (dx under a bf16 x);
+    one backward kernel launch a backward."""
+    args, heads, rel, mask = _swin_stage_args(torch.Generator().manual_seed(5),
+                                              cuda, stage, dtype=dtype)
     for t in args:
         t.requires_grad_()
     go = _rand(torch.Generator().manual_seed(6), cuda, *args[0].shape,
@@ -173,7 +302,9 @@ def test_window_attention_backward_matches_plain_autograd(cuda, dtype):
         K.reset_launch_counts()
         out = fn(*args[:5], heads, bias_table=args[5], rel_index=rel, mask=mask)
         grads.append(torch.autograd.grad(out, args, go))
-        assert K.LAUNCHES["window_attention"] == (fn is K.window_attention_fused)
+        fused = fn is K.window_attention_fused
+        assert K.LAUNCHES["window_attention"] == fused
+        assert K.LAUNCHES["wa_attention_bwd"] == fused
     for i, (got, want) in enumerate(zip(*grads)):
         assert got.dtype == want.dtype == args[i].dtype
         tol = (_f32_tol(want) if got.dtype == torch.float32

@@ -443,6 +443,14 @@ static inline int launch_linear_wgmma(const TRes* res, TOut* out, const T* A, co
   if (M <= 0 || N <= 0 || K <= 0 || (K * sizeof(T)) % 16 || (uintptr_t)A % 16 ||
       (uintptr_t)W % 16)
     return (int)cudaErrorInvalidValue;
+  // cuTensorMapEncodeTiled needs a context current in this host thread; a
+  // thread whose first CUDA call lands here (autograd's backward thread,
+  // before any PyTorch op ran in it) has none until a runtime call binds
+  // the device's primary context
+  int dev;
+  cudaError_t bound = cudaGetDevice(&dev);
+  if (bound == cudaSuccess) bound = cudaSetDevice(dev);
+  if (bound != cudaSuccess) return (int)bound;
   CUtensorMap tm_a, tm_w;
   if (!encode_operand(&tm_a, A, M, K, GEMM_BM) ||
       !encode_operand(&tm_w, W, N, K, GEMM_BN))

@@ -7,9 +7,11 @@
 // (models/transunet.py:85-96); Swin (N = 20 windows, relative-position bias,
 // shifted mask) is its other user, in serving and training.  A bf16 x (the
 // Swin under bf16) is upcast once in the wrapper (exact) and the projection
-// stores bf16, so the products stay f32 as in _window_attn_kernel; the
-// backward is PyTorch (ops/kernels.py window_attention_bwd), as
-// _fused_attn_bwd is XLA.
+// stores bf16, so the products stay f32 as in _window_attn_kernel.  The
+// backward (ops/kernels.py window_attention_bwd; _fused_attn_bwd, XLA in the
+// JAX package) recomputes qkv and do = g.proj_w with wa_linear, runs its
+// attention part in window_attention_bwd.cu and dx = dqkv.qkv_w on
+// wa_linear again.
 //
 // Decomposition (ops/kernels.py window_attention sequences them):
 //   GEMM(qkv, +b, f32) -> attention core (+ per-(window mod nW, head)

@@ -24,7 +24,8 @@ input to it as flax's ``dtype=`` does; the residual stream keeps whatever
 dtype its sums promote to.  ``attn_impl`` picks the attention:
 
 * ``'kernel'`` — K4 (``ops.kernels.window_attention_fused``: the CUDA
-  forward, the PyTorch recompute backward), the JAX ``'pallas'`` route.
+  forward, the recompute backward with its attention part in one CUDA
+  kernel), the JAX ``'pallas'`` route.
   Its output is in its input's dtype, so under bfloat16 the residual
   stream stays bfloat16;
 * ``'plain'`` — K4's plain version (``window_attention_plain``), the same

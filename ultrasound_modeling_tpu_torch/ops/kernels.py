@@ -19,9 +19,13 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   f32 and the output in x's dtype.  Built from ``linear`` (``wa_linear``:
   the same GEMM on f32 operands as 3xTF32 ``wgmma``, the f32 contract on
   the tensor cores) and ``attention_core`` with an additive matrix
-  (``csrc/window_attention.cu``); ``WindowAttentionFused`` adds the
-  recompute backward in PyTorch, as ``_fused_attn_bwd`` (``:206``) is XLA
-  in the JAX package.
+  (``csrc/window_attention.cu``).  ``WindowAttentionFused`` adds the
+  recompute backward (``_fused_attn_bwd`` ``:206``, XLA in the JAX
+  package): qkv and ``g . proj_w`` on ``wa_linear``, the attention part
+  (recomputed P, dq | dk | dv, the context and d_addmask) in one kernel,
+  ``wa_attention_bwd`` (``csrc/window_attention_bwd.cu``, windows of at
+  most 32 tokens), the weight gradients in torch.matmul and dx on
+  ``wa_linear``.
 * **K2** ``group_flat_norm`` — replaces ``group_flat_norm``
   (``pallas_kernels.py:1113``; ``_gfn_fwd_pallas`` ``:1037`` and
   ``_gfn_bwd_pallas`` ``:1066``), the per-branch LayerNorm with the folded
@@ -96,6 +100,9 @@ SOURCES = {
     "window_attention.cu": {
         "wa_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "wa_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    "window_attention_bwd.cu": {
+        "wa_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _P]},
     "group_flat_norm.cu": {
         "group_flat_norm_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _F, _P],
@@ -113,6 +120,7 @@ SOURCES = {
 
 MAX_SEQ = 160    # attention_core / flash_attention limits (csrc/*.cu)
 MAX_HEAD_DIM = 160
+WINDOW_BWD_MAX_SEQ = 32  # wa_attention_bwd's window limit (head dim as above)
 
 # launches per CUDA entry point (csrc/*.cu), plus one per call of the three
 # ported TPU kernels, K1, K4 and K5, that run a sequence of entry points
@@ -201,6 +209,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
 
 
 def _launch(fn, *args) -> None:
@@ -533,8 +550,8 @@ def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,
                                 addmask, scale)
 
 
-def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
-                         scale):
+def window_attention_bwd_plain(x, qkv_w, qkv_b, proj_w, addmask, g,
+                               num_heads, scale):
     """K4's backward (``_fused_attn_bwd``, ``pallas_kernels.py:206-235``)
     from the saved inputs and the output gradient ``g``: qkv, the scores
     ``scale * q.k^T + addmask``, P and the context recomputed in float32,
@@ -573,9 +590,138 @@ def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
     return dx, dqkv.t() @ x2, d_qkv_b, d_proj_w, d_proj_b, d_addmask
 
 
+def check_window_bwd_shape(n: int, head_dim: int) -> None:
+    """The limits of K4's backward kernel (``csrc/window_attention_bwd.cu``):
+    windows of at most ``WINDOW_BWD_MAX_SEQ`` tokens, head dim at most
+    ``MAX_HEAD_DIM``."""
+    if n > WINDOW_BWD_MAX_SEQ or head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"K4's backward kernel takes windows of at most "
+                         f"{WINDOW_BWD_MAX_SEQ} tokens and head dim <= "
+                         f"{MAX_HEAD_DIM}, got {n} and {head_dim}")
+
+
+def window_bwd_plan(nbw: int, nw: int, num_heads: int, masked: bool,
+                    sm_count: int) -> int:
+    """Windows ``per`` warp of K4's backward kernel: one without an additive
+    matrix; with one, enough that a warp's dS sum covers at least two
+    windows (where the variant repeats) and the grid holds about 24 warps an
+    SM.  It depends on the shape and the card alone, so d_addmask adds in
+    one order."""
+    if not masked:
+        return 1
+    return min(nbw // nw, max(2, -(-nbw * num_heads // (24 * sm_count))))
+
+
+def window_attention_bwd_core_plain(qkv: torch.Tensor, do: torch.Tensor,
+                                    addmask: Optional[torch.Tensor], n: int,
+                                    num_heads: int, scale: float
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               Optional[torch.Tensor]]:
+    rows, c3 = qkv.shape
+    nbw, c, d = rows // n, c3 // 3, c3 // 3 // num_heads
+    q, k, v = qkv.view(nbw, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    s = scale * (q @ k.transpose(-1, -2))                   # [nBW, h, N, N]
+    nw = 1 if addmask is None else addmask.shape[0]
+    if addmask is not None:
+        s = (s.view(nbw // nw, nw, num_heads, n, n) + addmask).view(s.shape)
+    p = torch.softmax(s, dim=-1)
+    o = (p @ v).transpose(1, 2).reshape(rows, c)
+    do4 = do.view(nbw, n, num_heads, d).transpose(1, 2)
+    dp = do4 @ v.transpose(-1, -2)
+    dv = p.transpose(-1, -2) @ do4
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    d_addmask = (None if addmask is None else
+                 ds.view(nbw // nw, nw, num_heads, n, n).sum(0))
+    dq = scale * (ds @ k)
+    dk = scale * (ds.transpose(-1, -2) @ q)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, c3)
+    return dqkv, o, d_addmask
+
+
+def window_attention_bwd_core(qkv: torch.Tensor, do: torch.Tensor,
+                              addmask: Optional[torch.Tensor], n: int,
+                              num_heads: int, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         Optional[torch.Tensor]]:
+    """The attention part of K4's backward (``wa_attention_bwd``) on the
+    float32 projection ``qkv [nBW*N, 3C]`` (q | k | v, heads contiguous in
+    each) and ``do = g . proj_w`` ``[nBW*N, C]``: per (window, head) P =
+    softmax(scale q.k^T + addmask[b % nW, h]) recomputed, then ``(dqkv
+    [nBW*N, 3C], o [nBW*N, C], d_addmask [nW, heads, N, N] or None)``, all
+    float32: dq | dk | dv, the context P.v and dS summed over the windows
+    that share a variant (in a fixed order)."""
+    _check(qkv, "qkv", (_F32,))
+    rows, c3 = qkv.shape
+    nbw, c, d = _check_attention_shape(rows, n, c3, num_heads, addmask)
+    _check(do, "do", (_F32,), (rows, c))
+    if not _on_cuda(qkv, do, addmask):
+        return window_attention_bwd_core_plain(qkv, do, addmask, n, num_heads,
+                                               scale)
+    check_window_bwd_shape(n, d)
+    dev = qkv.device
+    nw = 1 if addmask is None else addmask.shape[0]
+    per = window_bwd_plan(nbw, nw, num_heads, addmask is not None,
+                          _sm_count(dev))
+    dqkv = torch.empty_like(qkv)
+    o = torch.empty((rows, c), dtype=_F32, device=dev)
+    partial = d_addmask = None
+    if addmask is not None:
+        slices = -(-(nbw // nw) // per)
+        partial = torch.empty((slices, nw, num_heads, n, n), dtype=_F32,
+                              device=dev)
+        d_addmask = torch.empty_like(addmask)
+    _launch(build().wa_attention_bwd, _ptr(qkv), _ptr(do), _ptr(addmask),
+            _ptr(dqkv), _ptr(o), _ptr(partial), _ptr(d_addmask), nbw, n, c,
+            num_heads, nw, per, float(scale), _stream())
+    return dqkv, o, d_addmask
+
+
+def _window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
+                          scale, lin, core):
+    # a bf16 x (and its bf16 g) upcast exactly; every product is f32
+    nbw, n, c = x.shape
+    x2 = x.reshape(nbw * n, c).float()
+    g2 = g.reshape(nbw * n, c).float().contiguous()
+    qkv = lin(x2, qkv_w, qkv_b)                                    # a
+    do = lin(g2, proj_w.t().contiguous())                          # b
+    dqkv, o, d_addmask = core(qkv, do, addmask, n, num_heads, scale)  # c
+    del qkv, do              # freed here, the peak is the core's call
+    d_proj_w = g2.t() @ o                                          # d
+    del o
+    d_qkv_w = dqkv.t() @ x2
+    ones = torch.ones(nbw * n, dtype=_F32, device=x.device)        # e
+    d_qkv_b = None if qkv_b is None else ones @ dqkv
+    d_proj_b = ones @ g2
+    dx = lin(dqkv, qkv_w.t().contiguous(), out_dtype=x.dtype)      # f
+    return (dx.view(x.shape), d_qkv_w, d_qkv_b, d_proj_w, d_proj_b,
+            d_addmask)
+
+
+def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
+                         scale):
+    """K4's backward, arguments and results as
+    :func:`window_attention_bwd_plain`.  On the card: (a) qkv = x.qkv_w^T +
+    qkv_b and (b) do = g.proj_w on ``wa_linear``, (c) the attention part in
+    one kernel (:func:`window_attention_bwd_core`), (d) ``d_proj_w = g^T.o``
+    and ``d_qkv_w = dqkv^T.x`` in torch.matmul (f32; XLA dots in the JAX
+    package), (e) the bias gradients as column sums (products with a ones
+    vector, which run faster than ``sum(0)`` over these tall columns), (f)
+    dx = dqkv.qkv_w on ``wa_linear``, stored in x's dtype.  Raises above
+    the kernel's limits (:func:`check_window_bwd_shape`)."""
+    if not _on_cuda(x, qkv_w, qkv_b, proj_w, addmask, g):
+        return window_attention_bwd_plain(x, qkv_w, qkv_b, proj_w, addmask, g,
+                                          num_heads, scale)
+    check_window_bwd_shape(x.shape[1], x.shape[2] // num_heads)
+    return _window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g,
+                                 num_heads, scale, linear,
+                                 window_attention_bwd_core)
+
+
 class WindowAttentionFused(torch.autograd.Function):
     """K4 with its recompute backward (``_fused_attn_core``'s custom VJP):
-    the forward (the kernel's wrapper) saves only its inputs."""
+    the forward (the kernel's wrapper) saves only its inputs; the backward
+    (:func:`window_attention_bwd`) recomputes qkv, P and the context and
+    runs its attention part as one kernel on the card."""
 
     @staticmethod
     def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, addmask, num_heads,
@@ -620,7 +766,6 @@ def window_attention_fused(x: torch.Tensor, qkv_w: torch.Tensor,
 # bytes of a K2 row tile: of y in the forward, of y and of g each in the
 # backward (csrc/group_flat_norm.cu keeps two of them in flight a block)
 GFN_TILE_BYTES = {"fwd": 16384, "bwd": 8192}
-_SM_COUNT = {}
 
 
 def gfn_plan(rows: int, f: int, elem: int, direction: str,
@@ -639,11 +784,9 @@ def gfn_plan(rows: int, f: int, elem: int, direction: str,
 
 def _gfn_launch_plan(y2: torch.Tensor, direction: str) -> Tuple[int, int]:
     """The plan on y2's card: at most two blocks an SM."""
-    dev = y2.device
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, f = y2.shape
-    return gfn_plan(rows, f, y2.element_size(), direction, 2 * _SM_COUNT[dev])
+    return gfn_plan(rows, f, y2.element_size(), direction,
+                    2 * _sm_count(y2.device))
 
 
 def _check_gfn(y2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

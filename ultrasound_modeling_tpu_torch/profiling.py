@@ -1,9 +1,9 @@
 """Where the device time goes: ``torch.profiler`` over the port's serving
 forward and train step, one line per cell, on the card.
 
-    python -m ultrasound_modeling_tpu_torch.profiling
+    python -m ultrasound_modeling_tpu_torch.profiling [FAMILY ...]
 
-A cell is a family and ``serve-{f32,bf16}`` (the kernel path's forward at
+(the cells of the families named, or of all three).  A cell is a family and ``serve-{f32,bf16}`` (the kernel path's forward at
 batch 64) or ``train-{f32,bf16}-{composed,flash,pallas}`` (the whole train
 step, kernel route, augmentation on, at the family's batch: ViT 8,
 TransUNet 32, Swin 32); a trailing ``-plain`` takes the plain train
@@ -17,9 +17,10 @@ profiled ones.  Device ms is the kernels' summed time per repetition; idle
 = 1 - device / unprofiled wall.  The columns split the device time into the
 attention forward kernel (``attention_fwd_kernel``: K1's, K4's and K5's
 cores and K3's forward), K3's backward passes (``fa_bwd_*``), the port's
-GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``) and K2
-(``gfn_*``: forward, backward and its column reduce), give the device time
-of K4's PyTorch backward (the kernels under autograd's
+GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``), K2
+(``gfn_*``: forward, backward and its column reduce) and the attention
+kernel of K4's backward (``wa_bwd_*``, with its d_addmask reduce), give
+the device time of K4's whole backward (the kernels under autograd's
 ``WindowAttentionFusedBackward`` node), and list the three largest
 kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
 """
@@ -29,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -49,7 +51,8 @@ GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k3_bwd": ("fa_bwd_query_kernel", "fa_bwd_key_kernel"),
           "port_gemm": ("linear_wgmma_kernel",),
           "k2": ("gfn_forward_kernel", "gfn_backward_kernel",
-                 "gfn_reduce_kernel")}
+                 "gfn_reduce_kernel"),
+          "k4_bwd_core": ("wa_bwd_kernel", "wa_bwd_reduce_kernel")}
 
 
 def _model(family: str, dtype: str, attn_train: str, device):
@@ -149,7 +152,10 @@ def main():
     print(smi.stdout.strip() or f"{torch.cuda.get_device_name(0)}, power limit "
           f"not read (nvidia-smi: rc {smi.returncode} {smi.stderr.strip()})",
           flush=True)
+    families = sys.argv[1:] or sorted({f for f, _ in CELLS})
     for family, cell in CELLS:
+        if family not in families:
+            continue
         row = profile_cell(family, cell, device)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
