@@ -56,12 +56,18 @@ Phases (each checks its results; any failure exits non-zero):
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
    TransUNet, 3b the ViT, 3c the Swin (K4 in each of its 12 blocks, f32
-   and bf16), batch 64;
-4. the serving main paths: ``serve --model {transunet,vit,swin}`` as a user
-   starts it (npz -> bridge -> model -> the port's ``InferenceServer``),
-   f32 and bf16, answering concurrent ``/predict`` requests; the launch
-   counters are zeroed just before each and read just after, and the
-   family's kernels (K1's and K4's; the Swin's K4) must have launched;
+   and bf16), batch 64; 3d the ResNeStUNet (256x64x6) and 3e the
+   MobileUNet (256x64x15), which have no kernel on their path: the card's
+   f32 forward at batch 64 against the port's CPU forward of the first 4
+   frames (max abs probability difference 1e-4, TF32 off), bf16 against
+   f32 on the card (0.05, argmax agreement 0.99), no kernel launched,
+   frames/s and peak memory;
+4. the serving main paths: ``serve --model {transunet,vit,swin,
+   resnest_unet,mobileunet}`` as a user starts it (npz -> bridge -> model
+   -> the port's ``InferenceServer``), f32 and bf16, answering concurrent
+   ``/predict`` requests; the launch counters are zeroed just before each
+   and read just after, and the family's kernels (K1's and K4's; the
+   Swin's K4; none for the two U-Nets) must have launched;
 5. one train step at full width and each family's batch (TransUNet 32, ViT
    8, Swin 32), kernel route (K2 in the TransUNet; K3 under flash, K5 under
    pallas; K4 with its backward in the Swin) against the plain route from
@@ -70,15 +76,29 @@ Phases (each checks its results; any failure exits non-zero):
    composed, flash and pallas and bf16 flash, ViT f32 composed, flash and
    pallas and bf16 pallas and flash, Swin f32 and bf16; then ms/step and
    frames/s of the whole step (augmentation on) on both routes, in turns;
+   5b the two U-Nets' train step as their Trainer builds it (loss,
+   optimizer rule, dropout from the state's generator, augmentation on) at
+   full width and the family's batch (ResNeStUNet 64: class_balanced, Adam
+   unclipped; MobileUNet 256: pixelcnn, the dual-rate Adam), f32 and bf16:
+   a finite loss and finite gradients, the running statistics moved, no
+   kernel launched, the MobileUNet's encoder moved 0.1 as far as its
+   decoder, ms/step and peak memory; and the loss and every gradient at
+   batch 4 with the same dropout masks, card against the port's CPU: the
+   f32 loss within 1e-5, and the loss and every gradient leaf in float64
+   within phase 5's f32 gates (float32 gradients of these families sit
+   2e-3 to 2e-2 of a leaf's max from float64 on one device alone, where a
+   ReLU input within rounding of 0 flips; the float32 figure is printed);
 6. the train main paths: ``cli train --synthetic --epochs 1`` as a user
    starts it: the TransUNet in f32, f32 ``--attn-train flash`` and ``--bf16
    --attn-train flash`` (batch 32, two steps), the ViT with ``--attn-train
    pallas`` and ``--bf16 --attn-train flash`` (batch 8, eight steps), the
-   Swin and the Swin ``--bf16`` (batch 32, two steps); the counters are
-   zeroed just before each run and read just after: K2 must have launched
-   in every TransUNet run, K3 in the flash runs, K5 in the pallas run, K4
-   and its backward kernel in the Swin runs; the loss is finite and the weights (and the
-   TransUNet's BatchNorm running statistics) moved;
+   Swin and the Swin ``--bf16`` (batch 32, two steps), the ResNeStUNet
+   (batch 64) and the MobileUNet (batch 256), two steps each; the counters
+   are zeroed just before each run and read just after: K2 must have
+   launched in every TransUNet run, K3 in the flash runs, K5 in the pallas
+   run, K4 and its backward kernel in the Swin runs, none in the U-Net
+   runs; the loss is finite and the weights (and the BatchNorm running
+   statistics) moved;
 7. K6, which no path of the system calls, as a caller uses it: the
    smoothed targets of a batch's labels, against ``label2vec`` plus the
    smoothing.
@@ -128,7 +148,10 @@ K5_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:311"
 K6_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:1157"
 BATCH = 64  # the serving batch (cli serve --max-batch default)
 # TrainConfig.batch_size of each family
-TRAIN_BATCH = {"transunet": 32, "vit": 8, "swin": 32}
+TRAIN_BATCH = {"transunet": 32, "vit": 8, "swin": 32, "resnest_unet": 64,
+               "mobileunet": 256}
+# the two families with no kernel on their path, each with its phases
+UNETS = (("resnest_unet", "d"), ("mobileunet", "e"))
 # the kernels each main path must launch
 K4_KERNELS = ("window_attention", "wa_linear", "wa_attention_core")
 K4_TRAIN_KERNELS = K4_KERNELS + ("wa_attention_bwd",)
@@ -136,6 +159,7 @@ SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
                        "tb_attention_core") + K4_KERNELS
                  for fam in ("transunet", "vit")}
 SERVE_KERNELS["swin"] = K4_KERNELS
+SERVE_KERNELS.update({fam: () for fam, _ in UNETS})
 K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 K5_KERNELS = ("attention_train", "at_attention_core")
@@ -1218,6 +1242,83 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
     return x, {k: v[:8].cpu().numpy() for k, v in outs.items()}, flat
 
 
+def family_batch(family: str, n: int, seed: int):
+    """(frames, labels) of ``n`` synthetic frames at the family's shape."""
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.data import synthetic
+
+    mc = default_config(family).model
+    raw = synthetic.make_raw_array(n, seed, *mc.img_size, mc.in_channels)
+    return (torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])),
+            torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])))
+
+
+def phase_unet_forward(dev, seed: int, batch: int, family: str, phase: str):
+    """Full-width forward of a family with no kernel on its path: the
+    card's f32 against the port's CPU forward of the first 4 frames, bf16
+    against f32 on the card; no kernel may launch."""
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    mc = default_config(family).model
+    shape = (batch, *mc.img_size, mc.in_channels)
+    log(f"phase {phase}: full-width {family} forward, batch {batch}, frames "
+        f"{shape[1:]}")
+    model, flat = seeded_model(family, seed)
+    model.eval()
+    x = np.random.default_rng(seed + 1).standard_normal(shape).astype(
+        np.float32)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cpu = model(torch.from_numpy(x[:4]))
+        log(f"  CPU f32 forward of 4 frames: {time.perf_counter() - t0:.2f} s")
+    model.to(dev)
+    xt = torch.from_numpy(x).to(dev)
+    outs = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        model.compute_dtype = dt
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            p = model(xt)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in K.LAUNCHES.items() if v}
+            reps = 5
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(xt)
+            torch.cuda.synchronize()
+            fps = reps * batch / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        require(p.shape == (*shape[:3], 3) and p.dtype == torch.float32,
+                f"{family} {name}: output {tuple(p.shape)} {p.dtype}")
+        require(torch.isfinite(p).all(), f"{family} {name}: non-finite")
+        sum_err = (p.sum(-1) - 1).abs().max().item()
+        require(sum_err < 1e-4, f"{family} {name}: probs sum off by {sum_err}")
+        require(not counts, f"{family} {name}: launched kernels {counts}")
+        log(f"  {name:4s} {fps:10.1f} frames/s  prob-sum err {sum_err:.2e}  "
+            f"peak {peak:.0f} MiB  launches none")
+        outs[(name, "kernel")] = p
+    d = (outs[("f32", "kernel")][:4].cpu() - cpu).abs().max().item()
+    log(f"  f32 card vs CPU (first 4 frames): max abs prob diff {d:.3e} "
+        f"(bound 1e-4)")
+    require(d <= 1e-4, f"{family}: f32 card vs CPU {d} > 1e-4")
+    kb, kf = outs[("bf16", "kernel")], outs[("f32", "kernel")]
+    dbf = (kb - kf).abs().max().item()
+    agree = (kb.argmax(-1) == kf.argmax(-1)).float().mean().item()
+    log(f"  bf16 vs f32 on the card: max abs prob diff {dbf:.3e} (bound "
+        f"0.05), argmax agreement {agree:.6f} (bound 0.99)")
+    require(dbf <= 0.05 and agree >= 0.99,
+            f"{family} bf16 vs f32: diff {dbf}, argmax agreement {agree}")
+    del model
+    torch.cuda.empty_cache()
+    return x, {k: v[:8].cpu().numpy() for k, v in outs.items()}, flat
+
+
 def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
     """A main path: serve from an npz, as `cli serve --model family` does,
     f32 and bf16."""
@@ -1233,7 +1334,7 @@ def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
     K.reset_launch_counts()
     for name, bf16 in (("f32", False), ("bf16", True)):
         model = cli.build_serving_model(path, bf16, dev, family)
-        server = InferenceServer(cli.make_forward(model, dev), (256, 80, 10),
+        server = InferenceServer(cli.make_forward(model, dev), x.shape[1:],
                                  host="127.0.0.1", port=0, max_batch=64,
                                  window_ms=5.0, model_name=family)
         server.start_background()
@@ -1292,9 +1393,11 @@ def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
             f"stats {json.dumps(stats)}")
         del model
     counts = {k: K.LAUNCHES[k] for k in SERVE_KERNELS[family]}
-    log(f"  main-path launches: {counts}")
+    log(f"  main-path launches: {counts or dict(K.LAUNCHES)}")
     missing = [k for k, v in counts.items() if v == 0]
     require(not missing, f"kernels not launched on the main path: {missing}")
+    require(counts or not any(K.LAUNCHES.values()),
+            f"{family} has no kernel on its path, yet {dict(K.LAUNCHES)}")
     os.remove(path)
     return counts
 
@@ -1305,6 +1408,12 @@ def phase_serve(dev, x, ref, flat, tmp: str, family: str, phase: str):
 # holds them to a small share of the largest gradient instead.
 ZERO_GRAD = re.compile(
     r"(decoder/block_\d/conv\d_\d|hybrid/convtmp_\d)/bias$|attn/key_bias$")
+# the ResNeStUNet's: biases right before a train-mode BatchNorm, the
+# per-channel branch norms and the attention's norm over the batch included
+# (the MobileUNet has none); held, as phase 5 holds them in f32, to 1e-5
+# of the largest gradient
+ZERO_GRAD_UNET = re.compile(r"/(conv2_1_2|t_conv|shortcut_conv)/bias$"
+                            r"|/(branch1|branch2|attn_dense1)_bias$")
 
 # (family, dtype, train attention, cli flags): phase 5 runs them all, phase
 # 6 the ones marked True.  The Swin has no train-attention choice: it
@@ -1348,7 +1457,8 @@ def phase_train_step(dev, seed: int):
     log("phase 5: full-width train step at each family's batch, kernel "
         "route vs plain route")
     batches = {}
-    for family, bs in TRAIN_BATCH.items():
+    for family in dict.fromkeys(run[0] for run in TRAIN_RUNS):
+        bs = TRAIN_BATCH[family]
         raw = synthetic.make_raw_array(bs, seed + 2)
         batches[family] = (
             torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(dev),
@@ -1455,6 +1565,139 @@ def phase_train_step(dev, seed: int):
     return step_ms
 
 
+def unet_grads(family: str, seed: int, dev, dtype, x, y, masks):
+    """(loss, flax-layout gradients) of the family's default loss at the
+    seeded weights, in train mode with the given dropout masks, on ``dev``
+    in ``dtype``."""
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.data.labels import label2vec
+    from ultrasound_modeling_tpu_torch.models.common import set_dropout_masks
+    from ultrasound_modeling_tpu_torch.train.loop import loss_for
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
+
+    model, _ = seeded_model(family, seed)
+    model.compute_dtype = dtype
+    model.to(dev, dtype).train()
+    set_dropout_masks(model, {k: v.to(dev) for k, v in masks.items()})
+    loss = loss_for(default_config(family).train)(
+        label2vec(y.to(dev)), model(x.to(dev, dtype)))
+    loss.backward()
+    return loss.item(), to_flax({n: p.grad for n, p in model.named_parameters()},
+                                family)
+
+
+def phase_unet_train(dev, seed: int, family: str, phase: str):
+    """The family's train step as its Trainer builds it, at full width and
+    its batch, f32 and bf16; then card against CPU at batch 4 with the same
+    dropout masks."""
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.models.common import Dropout
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    from ultrasound_modeling_tpu_torch.train.loop import loss_for, optimizer_for
+    from ultrasound_modeling_tpu_torch.train.step import (
+        TrainState, make_train_step)
+
+    tc = default_config(family).train
+    bs = TRAIN_BATCH[family]
+    log(f"phase {phase}: {family} train step at batch {bs} (loss {tc.loss}, "
+        f"lr {tc.learning_rate}), as its Trainer builds it")
+    x, y = (t.to(dev) for t in family_batch(family, bs, seed + 2))
+    for name in ("f32", "bf16"):
+        model, _ = seeded_model(family, seed, name)
+        model.train().to(dev)
+        state = TrainState(model, optimizer_for(family, tc)(model), 0,
+                           torch.Generator(device=dev).manual_seed(seed),
+                           torch.Generator(device=dev).manual_seed(seed + 1))
+        step = make_train_step(model, loss_for(tc))
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        loss, _ = step(state, x, y, tc.learning_rate)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        counts = {k: v for k, v in K.LAUNCHES.items() if v}
+        require(not counts, f"{family} {name}: launched kernels {counts}")
+        require(np.isfinite(loss.item()), f"{family} {name}: loss {loss}")
+        bad = [n for n, p in model.named_parameters()
+               if not torch.isfinite(p.grad).all()]
+        require(not bad, f"{family} {name}: non-finite gradients {bad[:3]}")
+        after = model.state_dict()
+        stats = [k for k in after if "running" in k or k.endswith(
+            ("_norm_mean", "_norm_var"))]
+        still = [k for k in stats if torch.equal(after[k], before[k])]
+        require(stats and not still,
+                f"{family} {name}: running statistics did not move: {still}")
+        moved = {}
+        for n, p in model.named_parameters():
+            top = "encoder" if n.split(".")[0] == "encoder" else "decoder"
+            d = (p.detach() - before[n]).abs().max().item()
+            moved[top] = max(moved.get(top, 0.0), d)
+        ratio = ""
+        if family == "mobileunet":
+            r = moved["encoder"] / moved["decoder"]
+            ratio = f"; encoder/decoder largest move {r:.5f} (want 0.1)"
+            require(abs(r - 0.1) <= 1e-3 * 0.1,
+                    f"{family} {name}: encoder/decoder move ratio {r}")
+        for _ in range(2):
+            step(state, x, y, tc.learning_rate)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, x, y, tc.learning_rate)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"  {name:4s} loss {loss.item():.6f}, {len(stats)} running "
+            f"statistics moved{ratio}; {ms:.2f} ms/step ({1e3 * bs / ms:.1f} "
+            f"frames/s), peak {peak:.0f} MiB, launches none")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # card against CPU at batch 4, the same dropout masks
+    x4, y4 = family_batch(family, 4, seed + 3)
+    model, _ = seeded_model(family, seed)
+    shapes = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, n=n: shapes.__setitem__(n, tuple(inp[0].shape)))
+        for n, m in model.named_modules() if isinstance(m, Dropout)]
+    with torch.no_grad():
+        model.eval()(x4)
+    for h in hooks:
+        h.remove()
+    rng = np.random.default_rng(seed + 4)
+    masks = {n: torch.from_numpy(rng.random(s) < 0.5) for n, s in shapes.items()}
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for where, on in ((torch.device("cpu"), "cpu"), (dev, "card")):
+            res[(dtype, on)] = unet_grads(family, seed, where, dtype, x4, y4,
+                                          masks)
+    for dtype, gate in ((torch.float32, False), (torch.float64, True)):
+        (lc, gc), (lg, gg) = res[(dtype, "cpu")], res[(dtype, "card")]
+        loss_rel = abs(lg - lc) / abs(lc)
+        gmax = max(float(np.abs(g).max()) for g in gc.values())
+        worst, worst_key, zero = 0.0, "", 0.0
+        for k, g in gc.items():
+            a = gg[k]
+            if ZERO_GRAD_UNET.search(k):
+                zero = max(zero, max(np.abs(a).max(), np.abs(g).max()) / gmax)
+                continue
+            r = float(np.abs(a - g).max() / max(np.abs(g).max(), 1e-30))
+            if r > worst:
+                worst, worst_key = r, k
+        bound = " (bounds 1e-3, 1e-5)" if gate else " (not gated, see above)"
+        log(f"  card vs CPU, batch 4, {str(dtype)[6:]}: loss rel diff "
+            f"{loss_rel:.3e} (bound 1e-5); worst leaf max|dg|/max|g| "
+            f"{worst:.3e} at {worst_key}; exactly-zero leaves {zero:.1e} of "
+            f"the largest gradient" + bound)
+        require(loss_rel <= 1e-5, f"{family} {dtype}: loss rel {loss_rel}")
+        if gate:
+            require(worst <= 1e-3 and zero <= 1e-5,
+                    f"{family} {dtype}: grad {worst} at {worst_key}, "
+                    f"exactly-zero leaves {zero}")
+    torch.cuda.empty_cache()
+
+
 def phase_cli_train(dev, seed: int, tmp: str):
     """The train main paths: cli train as a user starts it, for each run
     of TRAIN_RUNS marked for it; counters zeroed before each, read after."""
@@ -1466,9 +1709,9 @@ def phase_cli_train(dev, seed: int, tmp: str):
     log("phase 6: cli train --synthetic --epochs 1")
     total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS
              + K4_TRAIN_KERNELS}
-    for family, dtype, impl, flags, in_cli in TRAIN_RUNS:
-        if not in_cli:
-            continue
+    runs = [run[:4] for run in TRAIN_RUNS if run[4]]
+    runs += [(family, "f32", "-", []) for family, _ in UNETS]
+    for family, dtype, impl, flags in runs:
         name = f"{family}/{dtype}/{impl}"
         argv = ["train", "--model", family, "--synthetic", "--epochs", "1",
                 "--device", "cuda", "--seed", str(seed), "--log-dir",
@@ -1483,6 +1726,8 @@ def phase_cli_train(dev, seed: int, tmp: str):
             f"layout copies {copies}")
         require(all(counts[k] > 0 for k in need),
                 f"{name}: cli train did not launch {need}: {counts}")
+        require(need or not any(counts.values()),
+                f"{name}: a family with no kernel launched {counts}")
         steps = -(-max(64, 2 * TRAIN_BATCH[family]) // TRAIN_BATCH[family])
         require(ep["iters"] == steps and np.isfinite(ep["loss"]),
                 f"{name}: epoch {ep}")
@@ -1490,9 +1735,10 @@ def phase_cli_train(dev, seed: int, tmp: str):
         now = to_flax(trainer.model.state_dict(), trainer.model.family)
         stats = [k for k in init if k.startswith("batch_stats/")]
         still = [k for k in init if np.array_equal(now[k], init[k])]
-        if family == "transunet":   # BatchNorm running statistics moved
-            require(stats and not set(stats) & set(still),
-                    f"{name}: BatchNorm running statistics did not move: {still}")
+        # the BatchNorm running statistics moved (the ViT and the Swin
+        # have none)
+        require(not set(stats) & set(still),
+                f"{name}: BatchNorm running statistics did not move: {still}")
         require(len(still) < len(init) // 2,
                 f"{name}: {len(still)} of {len(init)} leaves did not move")
         bs = TRAIN_BATCH[family]
@@ -1596,7 +1842,14 @@ def main(argv=None) -> int:
                 add(phase_serve(dev, x, ref, flat, tmp, family,
                                 phase.replace("3", "4")))
                 del x, ref, flat
+            for family, letter in UNETS:
+                x, ref, flat = phase_unet_forward(dev, args.seed, BATCH,
+                                                  family, "3" + letter)
+                add(phase_serve(dev, x, ref, flat, tmp, family, "4" + letter))
+                del x, ref, flat
             phase_train_step(dev, args.seed)
+            for family, letter in UNETS:
+                phase_unet_train(dev, args.seed, family, "5b" + letter)
             add(phase_cli_train(dev, args.seed, tmp))
         add(phase_label2vec(dev, args.seed))
         require(not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules),

@@ -134,3 +134,126 @@ def test_flax_dense_is_linear_transposed(rng):
     with torch.inference_mode():
         got = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the layers the ResNeStUNet and the MobileUNet add
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel,use_bias,hw", [
+    (4, True, (4, 6)), (4, True, (5, 3)), (4, False, (4, 6)),
+    (3, False, (4, 6)), (3, False, (5, 3))])
+def test_conv_transpose_sizes_and_bias_match_flax(rng, kernel, use_bias, hw):
+    """flax ConvTranspose(k, s=2, SAME) at even and odd input sizes, with
+    and without a bias (the ResNeStUNet's k4 upsamples and head, the
+    MobileUNet's bias-less k3 upsamples), to 1e-6: k4 is ``padding=1``,
+    k3 pad 0 cropped to ``2n``."""
+    x = rng.standard_normal((2, *hw, 6)).astype(np.float32)
+    fl = jc.conv_transpose(4, kernel, 2, use_bias=use_bias, name="up")
+    v = fl.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    assert ("bias" in v["params"]) == use_bias
+    want = np.asarray(fl.apply(v, jnp.asarray(x)))
+    port = _load(tc.ConvTranspose(6, 4, kernel, 2, use_bias=use_bias),
+                 v["params"], "up")
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 2 * hw[0], 2 * hw[1], 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,cin,cout,kw,hw", [
+    ("depthwise s1", 6, 6, dict(strides=1, padding="SAME", groups=6), (8, 6)),
+    ("depthwise s2", 6, 6, dict(strides=2, padding=((1, 1), (1, 1)),
+                                groups=6), (8, 6)),
+    ("depthwise s2 odd", 6, 6, dict(strides=2, padding=((1, 1), (1, 1)),
+                                    groups=6), (7, 5)),
+    ("stem s2", 5, 8, dict(strides=2, padding=((1, 1), (1, 1)), bias=True),
+     (8, 6)),
+    ("1x1 no bias", 6, 9, dict(strides=1, padding="SAME", k=1), (8, 6)),
+])
+def test_conv_groups_pads_and_bias_match_flax(rng, name, cin, cout, kw, hw):
+    """The MobileUNet's convs against flax ``nn.Conv``: depthwise
+    (``feature_group_count = ch``, kernel ``[3, 3, 1, ch]``), explicit
+    symmetric stride-2 padding, 1x1 without a bias; 1e-5."""
+    k = kw.get("k", 3)
+    groups, bias = kw.get("groups", 1), kw.get("bias", False)
+    x = rng.standard_normal((2, *hw, cin)).astype(np.float32)
+    fl = nn.Conv(cout, (k, k), strides=(kw["strides"],) * 2,
+                 padding=kw["padding"], feature_group_count=groups,
+                 use_bias=bias, name="c")
+    v = fl.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    want = np.asarray(fl.apply(v, jnp.asarray(x)))
+    port = _load(tc.Conv(cin, cout, k, stride=kw["strides"],
+                         padding=kw["padding"], groups=groups, use_bias=bias),
+                 v["params"], "c")
+    assert (port.bias is None) == (not bias)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape, name
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_symmetric_stride_two_pad_differs_from_flax_same(rng):
+    """The trap the explicit padding avoids: at an even size flax's SAME
+    pads a 3x3 stride-2 conv (0, 1), the reference's ZeroPadding2D(1) +
+    VALID (1, 1), so the outputs are a pixel apart; a bad padding spec
+    raises."""
+    x = torch.from_numpy(rng.standard_normal((1, 8, 6, 2)).astype(np.float32))
+    same = tc.Conv(2, 3, 3, stride=2)
+    sym = tc.Conv(2, 3, 3, stride=2, padding=((1, 1), (1, 1)))
+    sym.load_state_dict(same.state_dict())
+    with torch.no_grad():
+        torch.nn.init.normal_(sym.weight)
+        same.weight.copy_(sym.weight)
+        a, b = same(x), sym(x)
+    assert a.shape == b.shape == (1, 4, 3, 3)
+    assert not torch.allclose(a, b)
+    with pytest.raises(ValueError, match="padding"):
+        tc.Conv(2, 3, 3, padding="FULL")
+
+
+def test_elu_and_relu6_match_flax_with_their_derivatives(rng):
+    """Values and derivatives, exact zeros and sixes included (flax's ELU
+    and ``min(relu(x), 6)`` take slope 1 and 0 at 0)."""
+    x = rng.standard_normal((4, 5)).astype(np.float32) * 4
+    x[0, :3] = [0.0, 6.0, -0.0]
+    for kind, fn in (("elu", tc.elu), ("relu6", tc.relu6)):
+        jf = jc.activation(kind)
+        want = np.asarray(jf(jnp.asarray(x)))
+        jg = np.asarray(jax.grad(lambda a: jf(a).sum())(jnp.asarray(x)))
+        xt = torch.from_numpy(x).requires_grad_()
+        got = fn(xt)
+        got.sum().backward()
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6,
+                                   atol=1e-7, err_msg=kind)
+        keep = x != 6.0     # jnp.minimum splits a tie's gradient in half
+        np.testing.assert_allclose(xt.grad.numpy()[keep], jg[keep],
+                                   rtol=1e-6, atol=1e-7, err_msg=kind)
+
+
+def test_dropout_matches_flax_with_its_mask():
+    """flax ``nn.Dropout(0.5)`` in train mode: its output's zeros are its
+    mask; the port given that mask returns the same array, in x's dtype;
+    the identity in eval mode; drawing needs a generator, from which it
+    keeps about half once its mask is cleared."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((4, 8, 6, 5)) + 3.0).astype(np.float32)
+    want = np.asarray(nn.Dropout(0.5, deterministic=False).apply(
+        {}, jnp.asarray(x), rngs={"dropout": jax.random.PRNGKey(1)}))
+    keep = torch.from_numpy(want != 0)
+    m = torch.nn.Sequential()
+    m.add_module("Dropout_0", tc.Dropout(0.5))
+    m.train()
+    tc.set_dropout_masks(m, {"Dropout_0": keep})
+    got = m(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert m(xb).dtype == torch.bfloat16
+    tc.set_dropout_masks(m, {"Dropout_0": None})
+    with pytest.raises(RuntimeError, match="Generator"):
+        m(torch.from_numpy(x))
+    tc.set_dropout_generator(m, torch.Generator().manual_seed(0))
+    drawn = m(torch.from_numpy(x))
+    assert 0.45 < float((drawn != 0).float().mean()) < 0.55
+    m.eval()
+    assert torch.equal(m(torch.from_numpy(x)), torch.from_numpy(x))

@@ -625,3 +625,40 @@ def test_wrapper_device_routing():
     assert np.isclose(float(K.layer_norm(torch.ones(1, 4), torch.ones(4),
                                          torch.zeros(4), 1e-6,
                                          torch.float32).sum()), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["resnest_unet", "mobileunet"])
+def test_unet_family_full_width_forward_matches_the_cpu(cuda, family):
+    """The two U-Nets at full width (the default config: 256x64x6 and
+    256x64x15), seeded random weights through the bridge, batch 64 on the
+    card against the port's CPU forward of the first 4 frames: f32 within
+    1e-4 (TF32 off), bf16 within 0.05 of the card's f32 with argmax
+    agreement >= 0.99, and no kernel of ops/kernels.py launched (neither
+    family has one on its path)."""
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.models.common import full_f32_matmuls
+    from ultrasound_modeling_tpu_torch.models.registry import build_model
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+        from_flax, random_flax_variables)
+    full_f32_matmuls()
+    mcfg = default_config(family).model
+    model = build_model(mcfg)
+    model.load_state_dict(from_flax(random_flax_variables(model, 0), family))
+    model.eval()
+    h, w = mcfg.img_size
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (64, h, w, mcfg.in_channels)).astype(np.float32))
+    with torch.inference_mode():
+        cpu = model(x[:4])
+        model.to(cuda)
+        K.reset_launch_counts()
+        f32 = model(x.to(cuda))
+        model.compute_dtype = torch.bfloat16
+        bf16 = model(x.to(cuda))
+        torch.cuda.synchronize()
+    assert not any(K.LAUNCHES.values())
+    assert f32.shape == (64, h, w, 3) and torch.isfinite(f32).all()
+    assert (f32[:4].cpu() - cpu).abs().max().item() <= 1e-4
+    assert (bf16 - f32).abs().max().item() <= 0.05
+    assert (bf16.argmax(-1) == f32.argmax(-1)).float().mean().item() >= 0.99

@@ -95,13 +95,20 @@ def test_cuda_device_without_card_raises(monkeypatch, tmp_path):
 
 
 def test_build_model_names_unported_families():
-    """Each family not ported yet names its ROADMAP Queue 1 item."""
+    """No family is left unported: the registry builds all five of the JAX
+    package's (the last two, the ResNeStUNet and the MobileUNet, since
+    ROADMAP Queue 1 items 7 and 8 were done) and refuses an unknown name."""
+    import dataclasses
     from ultrasound_modeling_tpu.config import default_config
+    from ultrasound_modeling_tpu.models.registry import MODEL_NAMES
     from ultrasound_modeling_tpu_torch.models.registry import build_model
-    for name, item in (("resnest_unet", 7), ("mobileunet", 8)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item} "):
-            build_model(default_config(name).model)
+    for name in ("resnest_unet", "mobileunet"):
+        assert build_model(default_config(name).model).family == name
+    assert set(MODEL_NAMES) == {"transunet", "vit", "swin", "resnest_unet",
+                                "mobileunet"}
+    with pytest.raises(KeyError, match="unknown model"):
+        build_model(dataclasses.replace(default_config("transunet").model,
+                                        name="ksac_unet"))
     m = build_model(default_config("transunet").model)
     assert m.encoder.attn_impl == "kernel"
     assert len(m.encoder.blocks) == 8 and m.compute_dtype == torch.float32

@@ -113,7 +113,7 @@ def test_vit_bridge_round_trip_is_exact(variant):
     ct = bridge.from_flax({"params/decoder/head/kernel": head})
     assert ct["decoder.head.weight"].shape == (1, 3, 3, 3)   # [in, out, kh, kw]
     with pytest.raises(ValueError, match="family"):
-        bridge.from_flax(flat, "mobileunet")
+        bridge.from_flax(flat, "ksac_unet")
 
 
 def test_vit_random_flax_variables_cover_the_tree():

@@ -5,7 +5,8 @@ Training mirrors the JAX package's ``cli train`` (default config, the
 reference's schedule, clip and Adam)::
 
     python -m ultrasound_modeling_tpu_torch.cli train --synthetic \
-        [--model {transunet,vit,swin}] [--epochs N] [--batch-size B] [--bf16] \
+        [--model {transunet,vit,swin,resnest_unet,mobileunet}] [--epochs N] \
+        [--batch-size B] [--bf16] \
         [--attn-train {xla,flash,pallas}] [--seed S] [--device cuda]
 
 Serving takes weights from the JAX side as a flax-layout npz
@@ -16,13 +17,14 @@ Serving takes weights from the JAX side as a flax-layout npz
     save_params_npz({"params": state.params,
                      "batch_stats": state.batch_stats}, "P.npz")
     # port
-    python -m ultrasound_modeling_tpu_torch.cli serve [--model {vit,swin}] \
-        --params P.npz [--bf16]
+    python -m ultrasound_modeling_tpu_torch.cli serve \
+        [--model {vit,swin,resnest_unet,mobileunet}] --params P.npz [--bf16]
 
 The server is ``infer/server.py``, the port's copy of the JAX package's
 (stdlib + numpy), over this port's forward; ``/predict`` takes float32 NHWC
-frames ``[B, 256, 80, 10]`` and answers float32 probabilities ``[B, 256, 80,
-3]`` (every ported family).
+frames of the family's shape (``[B, 256, 80, 10]``; the ResNeStUNet's
+``[B, 256, 64, 6]``, the MobileUNet's ``[B, 256, 64, 15]``) and answers
+float32 probabilities ``[B, H, W, 3]``.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch
 from ultrasound_modeling_tpu_torch.config import default_config
 from ultrasound_modeling_tpu_torch.device import resolve_device
 
-PORTED = ("transunet", "vit", "swin")   # the model families this port builds
+# the model families this port builds: all five
+PORTED = ("transunet", "vit", "swin", "resnest_unet", "mobileunet")
 
 
 def build_serving_model(params_path: str, bf16: bool, device: torch.device,
@@ -154,10 +157,11 @@ def make_parser() -> argparse.ArgumentParser:
     t.add_argument("--model", default="transunet", choices=PORTED,
                    help="model family (the ported ones)")
     t.add_argument("--epochs", type=int, default=None,
-                   help="defaults to the config value (50)")
+                   help="defaults to the config value (50; resnest_unet "
+                        "46, mobileunet 30)")
     t.add_argument("--batch-size", type=int, default=None,
                    help="defaults to the config value (transunet 32, "
-                        "vit 8, swin 32)")
+                        "vit 8, swin 32, resnest_unet 64, mobileunet 256)")
     t.add_argument("--seed", type=int, default=None,
                    help="seed of the initial weights and the augmentation")
     t.add_argument("--bf16", action="store_true",
@@ -170,7 +174,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "K5, whose forward saves qkv and the probabilities "
                         "for its backward; 'auto' (the vit default) "
                         "resolves to 'xla' off the TPU.  The swin "
-                        "ignores it: it trains on K4 with its backward")
+                        "ignores it: it trains on K4 with its backward; "
+                        "resnest_unet and mobileunet have no attention")
     t.add_argument("--synthetic", action="store_true",
                    help="synthetic data instead of .npy files")
     t.add_argument("--train-data", default=None)

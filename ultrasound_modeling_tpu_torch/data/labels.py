@@ -26,3 +26,13 @@ def label2vec(label: torch.Tensor, num_classes: int = 3) -> torch.Tensor:
     if num_classes == 2:
         return torch.stack([1.0 - label, label], dim=-1)
     raise ValueError(f"num_classes must be 2 or 3, got {num_classes}")
+
+
+def one_hot_labels(label: torch.Tensor, num_classes: int = 3) -> torch.Tensor:
+    """The integer one-hot variant of the MobileUNet pipeline: ``label``
+    truncated toward zero to an integer, clipped to ``[0, num_classes -
+    1]``, one-hot float32 ``[..., num_classes]``.  The train step uses
+    ``label2vec``, as the JAX package's does."""
+    idx = label.to(torch.int32).clamp(0, num_classes - 1).long()
+    return torch.eye(num_classes, dtype=torch.float32,
+                     device=label.device)[idx]

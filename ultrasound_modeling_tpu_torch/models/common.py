@@ -7,13 +7,14 @@ PyTorch's ``channels_last`` layout, so no copy is made on the way in or out.
 Numerics follow the Keras layers the reference uses: LayerNorm eps 1e-3
 (channels only), BatchNorm eps 1e-3 and momentum 0.99 (batch statistics
 in train mode, running statistics in eval), LeakyReLU 0.3 (the ViT stem's
-0.2), exact GELU.  Params stay float32; under a bfloat16 compute dtype the convs and matmuls
+0.2), exact GELU, ELU and ReLU6 (the ResNeStUNet's and the MobileUNet's),
+and flax's ``nn.Dropout``.  Params stay float32; under a bfloat16 compute dtype the convs and matmuls
 run in bfloat16, while norm statistics and softmaxes are taken in float32.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +51,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.elu`` (alpha 1); both take slope 1 at 0."""
+    return F.elu(x)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``min(relu(x), 6)``, the MobileNetV2 blocks' activation."""
+    return F.relu6(x)
+
+
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """Keras ``AveragePooling2D(2, 2)``, VALID padding, NHWC."""
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
@@ -63,14 +74,27 @@ def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
-def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              dilation: int = 1, groups: int = 1) -> torch.Tensor:
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
+    return None if t is None else t.to(dtype)
+
+
+def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in float32 (float64 for float64 logits,
+    as the tests' float64 runs need)."""
+    return torch.softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+
+
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], dilation: int = 1,
+              groups: int = 1) -> torch.Tensor:
     """Stride-1 SAME conv on NHWC ``x`` with an OIHW ``weight`` (odd k:
     flax's SAME pads ``d*(k-1)/2`` on each side).  Runs in x's dtype."""
     k = weight.shape[-1]
     pad = dilation * (k - 1) // 2
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), bias.to(x.dtype),
-                 padding=pad, dilation=dilation, groups=groups)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                 _cast(bias, x.dtype), padding=pad, dilation=dilation,
+                 groups=groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -90,61 +114,79 @@ def flax_same_pads(size: int, kernel: int, stride: int,
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NHWC: ``padding='SAME'`` (Keras' 'same') or
-    ``'VALID'``, any kernel (int or (kh, kw)), stride and dilation.  The
-    stride-1 odd-kernel SAME conv of the TransUNet path pads symmetrically
-    (``conv_nhwc``); any other pads as flax does (``flax_same_pads``)."""
+    """flax ``nn.Conv`` on NHWC: ``padding='SAME'`` (Keras' 'same'),
+    ``'VALID'`` or explicit ``((top, bottom), (left, right))`` (the
+    MobileUNet's ZeroPadding2D(1) + VALID stride-2 convs, which pad (1, 1)
+    where SAME pads (0, 1)), any kernel (int or (kh, kw)), stride,
+    dilation and ``groups`` (flax's ``feature_group_count``: the depthwise
+    convs), with or without a bias.  The stride-1 odd-kernel SAME conv
+    pads symmetrically (``conv_nhwc``); any other SAME conv pads as flax
+    does (``flax_same_pads``)."""
 
     def __init__(self, cin: int, cout: int, kernel=3, dilation: int = 1,
-                 stride=1, padding: str = "SAME"):
+                 stride=1, padding="SAME", groups: int = 1,
+                 use_bias: bool = True):
         super().__init__()
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"padding {padding!r} not 'SAME' or 'VALID'")
+        if padding not in ("SAME", "VALID") and (
+                len(padding) != 2 or any(len(p) != 2 for p in padding)):
+            raise ValueError(f"padding {padding!r} not 'SAME', 'VALID' or "
+                             f"((top, bottom), (left, right))")
         self.dilation = dilation
         self.stride = _pair(stride)
         self.padding = padding
-        self.weight = nn.Parameter(torch.zeros(cout, cin, *_pair(kernel)))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.groups = groups
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups,
+                                               *_pair(kernel)))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
         kh, kw = self.weight.shape[-2:]
         if (self.stride == (1, 1) and self.padding == "SAME"
                 and kh == kw and kh % 2):
-            return conv_nhwc(x, self.weight, self.bias, self.dilation)
+            return conv_nhwc(x, self.weight, self.bias, self.dilation,
+                             self.groups)
         y = x.permute(0, 3, 1, 2)
         if self.padding == "SAME":
             (sh, sw), d = self.stride, self.dilation
             ph = flax_same_pads(y.shape[2], kh, sh, d)
             pw = flax_same_pads(y.shape[3], kw, sw, d)
             y = F.pad(y, (*pw, *ph))
-        y = F.conv2d(y, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                     stride=self.stride, dilation=self.dilation)
+        elif self.padding != "VALID":
+            ph, pw = self.padding
+            y = F.pad(y, (*pw, *ph))
+        y = F.conv2d(y, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                     stride=self.stride, dilation=self.dilation,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class ConvTranspose(nn.Module):
-    """flax ``nn.ConvTranspose(padding='SAME')``: out = in * stride.
+    """flax ``nn.ConvTranspose(padding='SAME')``: out = in * stride, with or
+    without a bias.
 
     flax applies its (unflipped) kernel as a fractionally strided conv; the
     bridge stores it spatially flipped as ``[in, out, kh, kw]``, so torch's
     ``conv_transpose2d`` computes the same sums.  For k=3, s=2 no symmetric
     ``padding``/``output_padding`` reproduces flax's SAME: pad 0 gives
     ``2n+1`` rows and flax's output is the first ``2n`` (exact); for k=4,
-    s=2 it is ``padding=1``."""
+    s=2 it is ``padding=1`` (flax pads the dilated input by 2 on each
+    side), ``2n`` rows at even and odd ``n``."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 2):
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 2,
+                 use_bias: bool = True):
         super().__init__()
         self.stride = stride
         self.weight = nn.Parameter(torch.zeros(cin, cout, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
         b, h, w, _ = x.shape
         s = self.stride
         k = self.weight.shape[-1]
         pad = (k - s) // 2
-        y =F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=s, padding=pad)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                               _cast(self.bias, x.dtype), stride=s,
+                               padding=pad)
         return y[:, :, :h * s, :w * s].permute(0, 2, 3, 1)
 
 
@@ -161,7 +203,8 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm(momentum=0.99)`` computes it.
 
     Eval (``module.eval()``) normalizes with the running statistics.  Train
-    takes float32 batch statistics over every other axis, the variance as
+    takes batch statistics over every other axis in float32 (float64 for
+    a float64 input, as flax promotes), the variance as
     ``max(E[x^2] - E[x]^2, 0)`` (flax's ``use_fast_variance``), normalizes
     with that biased variance and updates the running statistics in place
     as ``0.99 * running + 0.01 * batch`` — with the biased variance, where
@@ -176,11 +219,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             a = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = x.float() * a + (self.bias - self.running_mean * a)
+            y = xf * a + (self.bias - self.running_mean * a)
             return y.to(x.dtype)
-        xf = x.float()
         axes = tuple(range(x.dim() - 1))
         mean = xf.mean(axes)
         var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
@@ -210,3 +253,51 @@ class Norm(nn.Module):
 
     def forward(self, x):
         return getattr(self, self.inner)(x)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode ``where(keep, x / (1 -
+    rate), 0)`` with ``keep ~ Bernoulli(1 - rate)`` per element; the
+    identity in eval mode.  ``keep`` is ``mask`` when one is set (a bool
+    tensor of x's shape: the tests and ``chip_smoke.py`` give both
+    frameworks the same masks, as JAX's threefry and torch's Philox draw
+    different streams), else drawn from ``generator``, which
+    ``train.step.TrainState`` sets on every dropout layer
+    (``set_dropout_generator``).  Without either it refuses to draw."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = self.mask
+        if keep is None:
+            if self.generator is None:
+                raise RuntimeError("Dropout draws from an explicit "
+                                   "torch.Generator: set_dropout_generator")
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+def set_dropout_generator(model: nn.Module,
+                          gen: Optional[torch.Generator]) -> None:
+    """Every ``Dropout`` of ``model`` draws from ``gen``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = gen
+
+
+def set_dropout_masks(model: nn.Module, masks) -> None:
+    """``masks``: ``{module name: bool keep mask or None}`` for ``Dropout``
+    layers of ``model`` (``named_modules`` names); a layer whose mask is
+    None draws from its generator again."""
+    mods = dict(model.named_modules())
+    for name, keep in masks.items():
+        if not isinstance(mods[name], Dropout):
+            raise KeyError(f"{name!r} is not a Dropout layer")
+        mods[name].mask = keep

@@ -1,7 +1,7 @@
 """Model zoo keyed by config name (PyTorch port of ``models/registry.py``).
 
 Takes the port's ``ModelConfig`` (``config.py``, a copy of the JAX
-package's).  ``transunet``, ``vit`` and ``swin`` are ported so far.
+package's) and builds each of the five families.
 """
 
 from __future__ import annotations
@@ -9,12 +9,6 @@ from __future__ import annotations
 import torch
 
 from ultrasound_modeling_tpu_torch.config import ModelConfig
-
-# the other families and the ROADMAP item that ports each
-_NOT_YET = {
-    "resnest_unet": "ROADMAP Queue 1 item 7 (ResNeStUNet)",
-    "mobileunet": "ROADMAP Queue 1 item 8 (models/mobileunet.py)",
-}
 
 _DTYPES = {"float32": torch.float32, "f32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -79,7 +73,17 @@ def build_model(cfg: ModelConfig) -> torch.nn.Module:
             window=tuple(cfg.window), drop_path_rate=cfg.drop_path_rate,
             attn_impl=_attn_impl(cfg.swin_attn_impl),
             compute_dtype=_DTYPES[cfg.compute_dtype])
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: {_NOT_YET[name]}")
+    # the two U-Nets' dropout is fixed by their architecture (0.5 in the
+    # first decoder stages); cfg.dropout_rate does not reach it, as in JAX
+    if name == "resnest_unet":
+        from ultrasound_modeling_tpu_torch.models.resnest import ResNeStUNet
+        return ResNeStUNet(
+            num_classes=cfg.num_classes, ksize=cfg.ksize, radix=cfg.radix,
+            kpaths=cfg.kpaths, in_channels=cfg.in_channels,
+            compute_dtype=_DTYPES[cfg.compute_dtype])
+    if name == "mobileunet":
+        from ultrasound_modeling_tpu_torch.models.mobileunet import MobileUNet
+        return MobileUNet(num_classes=cfg.num_classes,
+                          in_channels=cfg.in_channels,
+                          compute_dtype=_DTYPES[cfg.compute_dtype])
     raise KeyError(f"unknown model {name!r}")

@@ -3,18 +3,22 @@ forward and train step, one line per cell, on the card.
 
     python -m ultrasound_modeling_tpu_torch.profiling [FAMILY ...]
 
-(the cells of the families named, or of all three).  A cell is a family and ``serve-{f32,bf16}`` (the kernel path's forward at
-batch 64) or ``train-{f32,bf16}-{composed,flash,pallas}`` (the whole train
-step, kernel route, augmentation on, at the family's batch: ViT 8,
-TransUNet 32, Swin 32); a trailing ``-plain`` takes the plain train
-route instead.  The ViT runs every cell, the TransUNet its f32 composed
-and bf16 flash train steps, the Swin both serving cells and its f32 and
-bf16 train steps (``k4``: it trains on K4 and its backward, drop path on),
-the f32 one also on the plain route.  Each cell runs 3 warm-ups, then 5
-unprofiled
-repetitions (host clock around ``synchronize``: the wall ms), then 3
-profiled ones.  Device ms is the kernels' summed time per repetition; idle
-= 1 - device / unprofiled wall.  The columns split the device time into the
+(the cells of the families named, or of all five).  A cell is a family
+and ``serve-{f32,bf16}`` (the kernel path's forward at batch 64) or
+``train-{f32,bf16}[-{composed,flash,pallas,k4}]`` (the whole train step as
+the family's Trainer builds it (its loss and optimizer rule), kernel
+route, augmentation on, at the family's batch: ViT 8, TransUNet 32, Swin
+32, ResNeStUNet 64, MobileUNet 256); a trailing ``-plain`` takes the plain
+train route instead.  The ViT runs every cell, the TransUNet its f32
+composed and bf16 flash train steps, the Swin both serving cells and its
+f32 and bf16 train steps (``k4``: it trains on K4 and its backward, drop
+path on), the f32 one also on the plain route, the ResNeStUNet and the
+MobileUNet (no kernel on their paths; dropout on in train) both serving
+cells and both train steps, at the family's frame shape.  Each cell runs
+3 warm-ups, then 5 unprofiled repetitions (host clock around
+``synchronize``: the wall ms), then 3 profiled ones.  Device ms is the
+kernels' summed time per repetition; idle = 1 - device / unprofiled wall;
+peak MiB is ``torch.cuda.max_memory_allocated`` over the cell.  The columns split the device time into the
 attention forward kernel (``attention_fwd_kernel``: K1's, K4's and K5's
 cores and K3's forward), K3's backward passes (``fa_bwd_*``), the port's
 GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``), K2
@@ -46,7 +50,11 @@ CELLS = (("vit", "serve-f32"), ("vit", "serve-bf16"),
          ("vit", "train-bf16-pallas"),
          ("transunet", "train-f32-composed"), ("transunet", "train-bf16-flash"),
          ("swin", "serve-f32"), ("swin", "serve-bf16"), ("swin", "train-f32-k4"),
-         ("swin", "train-f32-k4-plain"), ("swin", "train-bf16-k4"))
+         ("swin", "train-f32-k4-plain"), ("swin", "train-bf16-k4"),
+         ("resnest_unet", "serve-f32"), ("resnest_unet", "serve-bf16"),
+         ("resnest_unet", "train-f32"), ("resnest_unet", "train-bf16"),
+         ("mobileunet", "serve-f32"), ("mobileunet", "serve-bf16"),
+         ("mobileunet", "train-f32"), ("mobileunet", "train-bf16"))
 GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k3_bwd": ("fa_bwd_query_kernel", "fa_bwd_key_kernel"),
           "port_gemm": ("linear_wgmma_kernel",),
@@ -71,40 +79,43 @@ def _model(family: str, dtype: str, attn_train: str, device):
 def _cell_fn(family: str, cell: str, device):
     """(one repetition of the cell, frames a repetition)."""
     from ultrasound_modeling_tpu_torch.data import synthetic
-    from ultrasound_modeling_tpu_torch.train import losses
-    from ultrasound_modeling_tpu_torch.train.optim import Adam
+    from ultrasound_modeling_tpu_torch.train.loop import loss_for, optimizer_for
     from ultrasound_modeling_tpu_torch.train.step import (
         TrainState, make_train_step)
+    cfg = default_config(family)
+    frame = (*cfg.model.img_size, cfg.model.in_channels)
     parts = cell.split("-")
     if parts[0] == "serve":
         model = _model(family, parts[1], "xla", device).eval()
-        model.set_attn_impl("kernel")
+        if hasattr(model, "set_attn_impl"):
+            model.set_attn_impl("kernel")
         x = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
-            (SERVE_BATCH, 256, 80, 10)).astype(np.float32)).to(device)
+            (SERVE_BATCH, *frame)).astype(np.float32)).to(device)
 
         def serve():
             with torch.inference_mode():
                 model(x)
         return serve, SERVE_BATCH
-    dtype, impl = parts[1:3]
-    impl = {"composed": "xla"}.get(impl, impl)
+    dtype = parts[1]
+    impl = {"composed": "xla"}.get(parts[2], parts[2]) if parts[2:] else "xla"
     model = _model(family, dtype, impl, device).train()
-    model.set_train_route("plain" if parts[3:] == ["plain"] else "kernel")
-    cfg = default_config(family)
+    if hasattr(model, "set_train_route"):
+        model.set_train_route("plain" if parts[3:] == ["plain"] else "kernel")
     bs = cfg.train.batch_size
-    raw = synthetic.make_raw_array(bs, SEED + 2)
+    raw = synthetic.make_raw_array(bs, SEED + 2, *frame)
     x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(device)
     y = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 0])).to(device)
-    state = TrainState(model, Adam(model.parameters(), 1.0), 0,
+    state = TrainState(model, optimizer_for(family, cfg.train)(model), 0,
                        torch.Generator(device=device).manual_seed(SEED),
                        torch.Generator(device=device).manual_seed(SEED + 1))
-    step = make_train_step(model, losses.cce_smooth,
+    step = make_train_step(model, loss_for(cfg.train),
                            l2_scale=cfg.train.l2_regularization)
     return (lambda: step(state, x, y, 1e-4)), bs
 
 
 def profile_cell(family: str, cell: str, device) -> dict:
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
     fn, frames = _cell_fn(family, cell, device)
     for _ in range(3):
         fn()
@@ -139,6 +150,7 @@ def profile_cell(family: str, cell: str, device) -> dict:
             "idle": 1.0 - device_ms / wall, "launches": launches / reps,
             **{f"{g}_ms": ms for g, ms in groups.items()},
             "k4_bwd_ms": k4_bwd_us / 1e3 / reps,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
             "top": [(n[:60], ms) for n, ms in top]}
 
 

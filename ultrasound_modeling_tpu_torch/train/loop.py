@@ -12,7 +12,14 @@ drivers' semantics:
 * scalars go through ``utils/logging.MetricLogger``, the port's copy of
   the JAX package's.
 
-The loss adds the L2 kernel penalty where the config sets one (the ViT).
+The JAX Trainer's per-loss and per-family rules (``loss_for``,
+``optimizer_for``): the smoothing reaches ``cce_smooth`` as
+``label_smoothing=`` and ``factor_scaled`` as ``smoothing=``, only when it
+differs from 0.1; ``class_factor`` overrides the factor family's
+constants; ``class_balanced`` trains without clipping; the MobileUNet
+trains with the dual-rate Adam.  The loss adds the L2 kernel penalty where
+the config sets one (the ViT).
+
 Left out (ROADMAP Queue 1): decoupled weight decay and the bf16 Adam first
 moment (a config asking for either raises), meshes (data, tensor and
 pipeline parallel), ``scan_epochs``, out-of-core datasets, checkpoint and
@@ -23,17 +30,45 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from ultrasound_modeling_tpu_torch.config import Config
+from ultrasound_modeling_tpu_torch.config import Config, TrainConfig
 from ultrasound_modeling_tpu_torch.data.pipeline import Dataset
 from ultrasound_modeling_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ultrasound_modeling_tpu_torch.models.registry import build_model
 from ultrasound_modeling_tpu_torch.train import losses, metrics, optim
 from ultrasound_modeling_tpu_torch.train import step as step_mod
 from ultrasound_modeling_tpu_torch.utils.logging import MetricLogger
+
+
+def loss_for(tc: TrainConfig) -> Callable:
+    """``tc.loss`` with the configured smoothing (only where it is not the
+    losses' own 0.1, under each loss's keyword) and class factors (the
+    factor family's)."""
+    fn = losses.get_loss(tc.loss)
+    kw = {}
+    if tc.label_smoothing != 0.1 and tc.loss in ("cce_smooth",
+                                                 "factor_scaled"):
+        key = "label_smoothing" if tc.loss == "cce_smooth" else "smoothing"
+        kw[key] = tc.label_smoothing
+    if tc.class_factor is not None and tc.loss in ("factor_scaled",
+                                                   "pixelcnn", "evaluator"):
+        kw["class_factor"] = tuple(tc.class_factor)
+    return functools.partial(fn, **kw) if kw else fn
+
+
+def optimizer_for(model_name: str, tc: TrainConfig
+                  ) -> Callable[[torch.nn.Module], optim.Adam]:
+    """The optimizer over a model's parameters: the dual-rate Adam (b1 0.5,
+    no clipping) for the MobileUNet; else Adam clipped at
+    ``tc.clip_global_norm``, unclipped under ``class_balanced`` (the
+    standalone ResNeSt U-Net's)."""
+    if model_name == "mobileunet":
+        return optim.dual_rate_adam
+    clip = tc.clip_global_norm if tc.loss != "class_balanced" else None
+    return lambda model: optim.Adam(model.parameters(), clip_norm=clip)
 
 
 class Trainer:
@@ -46,16 +81,14 @@ class Trainer:
         if tc.weight_decay or tc.adam_mu_dtype is not None:
             raise NotImplementedError(
                 f"weight_decay={tc.weight_decay} / adam_mu_dtype="
-                f"{tc.adam_mu_dtype!r} are not ported yet (every ported "
-                f"family trains with 0 / None): ROADMAP Queue 1 item 7")
+                f"{tc.adam_mu_dtype!r} are not ported yet (every family "
+                f"trains with 0 / None by default): ROADMAP Queue 1 item 3")
         self.model = build_model(cfg.model)
         self.logger = logger or MetricLogger()
-        self.loss_fn = losses.get_loss(tc.loss)
-        if tc.label_smoothing != 0.1:
-            self.loss_fn = functools.partial(
-                self.loss_fn, label_smoothing=tc.label_smoothing)
+        self.loss_fn = loss_for(tc)
         self.state = step_mod.TrainState.create(
-            self.model, tc.seed, self.device, clip_norm=tc.clip_global_norm)
+            self.model, tc.seed, self.device,
+            optimizer_for(cfg.model.name, tc))
         self.schedule = optim.piecewise_constant(
             tc.learning_rate, tc.lr_boundaries, tc.lr_values)
         self.plateau_scale = 1.0

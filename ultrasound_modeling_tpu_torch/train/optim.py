@@ -5,19 +5,22 @@
 * ``clip_by_global_norm``: optax's — every gradient is scaled by
   ``max_norm / g_norm`` only when ``g_norm > max_norm``, with no epsilon
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 and always scales);
-* ``Adam``: optax ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root
-  0, bias correction) giving the update *direction*; the runtime learning
-  rate is applied outside, ``p <- p - lr * u``, as the JAX train step does
+* ``Adam``: optax ``scale_by_adam`` (b1 0.9 by default, b2 0.999, eps
+  1e-8, eps_root 0, bias correction) giving the update *direction*,
+  after an optional global-norm clip; the runtime learning rate is
+  applied outside, ``p <- p - lr * u``, as the JAX train step does
   (``train/step.py:114-116``), so the plateau decay can change it between
-  steps.
+  steps;
+* ``dual_rate_adam``: the MobileUNet's ``make_dual_rate_direction``, two
+  Adam groups with b1 0.5 and no clipping, the encoder's direction scaled
+  by 0.1 (the runtime lr is the decoder's rate).
 
-Left out: decoupled weight decay, the bf16 first moment, the MobileUNet
-dual-rate direction.
+Left out: decoupled weight decay, the bf16 first moment.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -43,21 +46,29 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 
 
 class Adam:
-    """optax ``chain(clip_by_global_norm, scale_by_adam)`` over a list of
-    float32 parameters, then ``p -= lr * update``.  State: ``mu``, ``nu``
-    (float32, like the params) and the step ``count``.  Every stage runs
-    over all parameters at once (``torch._foreach_*``: a few launches per
-    step rather than a dozen per parameter)."""
+    """optax ``chain(clip_by_global_norm, scale_by_adam)`` (no clip when
+    ``clip_norm`` is None) over a list of float32 parameters, then ``p -=
+    lr * update``.  ``scales``, one per parameter, multiply each update
+    after Adam (optax's ``scale`` in a ``multi_transform`` group).  State:
+    ``mu``, ``nu`` (float32, like the params) and the step ``count``.
+    Every stage runs over all parameters at once (``torch._foreach_*``: a
+    few launches per step rather than a dozen per parameter)."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter],
                  clip_norm: Optional[float] = 1.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 scales: Optional[Sequence[float]] = None):
         self.params = list(params)
         self.clip_norm = clip_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # the indices of the parameters of each scale other than 1
+        self.scaled: Dict[float, List[int]] = {}
+        for i, s in enumerate(scales or ()):
+            if s != 1.0:
+                self.scaled.setdefault(float(s), []).append(i)
 
     @torch.no_grad()
     def step(self, lr: float) -> None:
@@ -74,8 +85,23 @@ class Adam:
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(mu_hat, den)
+        for s, idx in self.scaled.items():
+            torch._foreach_mul_([mu_hat[i] for i in idx], s)
         torch._foreach_add_(self.params, mu_hat, alpha=-lr)
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+
+def dual_rate_adam(model: torch.nn.Module, encoder_ratio: float = 0.1,
+                   b1: float = 0.5, encoder_prefix: str = "encoder") -> Adam:
+    """The MobileUNet's dual-rate direction (``make_dual_rate_direction``):
+    Adam with ``b1`` and no clipping; the parameters under a top-level
+    module whose name starts with ``encoder_prefix`` move at
+    ``encoder_ratio`` times the runtime lr (the decoder's rate)."""
+    names = [n for n, _ in model.named_parameters()]
+    return Adam(model.parameters(), clip_norm=None, b1=b1,
+                scales=[encoder_ratio
+                        if n.split(".")[0].startswith(encoder_prefix) else 1.0
+                        for n in names])

@@ -3,8 +3,10 @@
 The JAX package compiles one XLA program per step; here the step runs
 eagerly, in the same order: augment -> label2vec -> forward in train mode
 (the BatchNorms take batch statistics and update their running statistics
-in place as the forward passes them) -> loss (+ the L2 kernel penalty)
--> backward -> global-norm clip -> Adam -> ``p -= lr * update``.  A CUDA
+in place as the forward passes them; dropout and drop path draw from the
+state's generator) -> loss (+ the L2 kernel penalty) -> backward ->
+the optimizer (the Trainer's: global-norm clip or none, Adam or the
+dual-rate Adam) -> ``p -= lr * update``.  A CUDA
 graph of the step is later work.
 """
 
@@ -17,6 +19,7 @@ import torch
 
 from ultrasound_modeling_tpu_torch.data import augment as aug_mod
 from ultrasound_modeling_tpu_torch.data import labels as labels_mod
+from ultrasound_modeling_tpu_torch.models.common import set_dropout_generator
 from ultrasound_modeling_tpu_torch.models.swin import set_drop_path_generator
 from ultrasound_modeling_tpu_torch.train import losses as losses_mod
 from ultrasound_modeling_tpu_torch.train import metrics as metrics_mod
@@ -29,8 +32,8 @@ from ultrasound_modeling_tpu_torch.utils.checkpoint import (
 class TrainState:
     """The model (params and BatchNorm running statistics), the optimizer
     state, the step count, the augmentation generator and the generator
-    the model's ``DropPath`` layers draw from in train mode (the Swin's;
-    set on them here)."""
+    the model's stochastic layers draw from in train mode (the Swin's
+    ``DropPath``, the U-Nets' ``Dropout``; set on them here)."""
 
     model: torch.nn.Module
     opt: Adam
@@ -40,23 +43,26 @@ class TrainState:
 
     def __post_init__(self):
         set_drop_path_generator(self.model, self.drop_gen)
+        set_dropout_generator(self.model, self.drop_gen)
 
     @classmethod
     def create(cls, model: torch.nn.Module, seed: int, device,
-               clip_norm=1.0) -> "TrainState":
+               optimizer: Callable[[torch.nn.Module], Adam] = (
+                   lambda m: Adam(m.parameters()))) -> "TrainState":
         """Seeded initial weights (``random_flax_variables``: He-normal
-        kernels, through the weight bridge) on ``device``; both generators
-        live on the same device, so augmentation and stochastic depth never
-        leave it (the drop-path one seeded ``seed + 1``, a stream apart
-        from the augmentation's)."""
+        kernels, through the weight bridge) on ``device`` and
+        ``optimizer(model)`` over them (the Trainer's per-family rule; Adam
+        clipped at 1.0 by default); both generators live on the same
+        device, so augmentation, stochastic depth and dropout never leave
+        it (the second seeded ``seed + 1``, a stream apart from the
+        augmentation's)."""
         model.load_state_dict(
             from_flax(random_flax_variables(model, seed), model.family),
             strict=True)
         model.to(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
-        return cls(model, Adam(model.parameters(), clip_norm), 0, gen,
-                   drop_gen)
+        return cls(model, optimizer(model), 0, gen, drop_gen)
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,

@@ -20,14 +20,21 @@ mechanical.  Per leaf:
   Which modules are transposed depends on the family (``family``
   argument): the TransUNet's ``up`` and ``head``; none in the ViT, whose
   ``head`` is a plain 3x3 conv; the Swin's ``up_{i}``, ``up_final1`` and
-  ``head``;
+  ``head``; the ResNeStUNet's ``upsample_{i}/t_conv`` and ``f_tran``; the
+  MobileUNet's ``decoder_up_{i}/t_conv`` and ``decoder_head``.  A conv
+  without a bias (the MobileUNet's) has no ``bias`` leaf on either side; a
+  grouped (depthwise) kernel ``[kh, kw, 1, ch]`` becomes ``[ch, 1, kh,
+  kw]`` like any other;
 * Dense ``kernel`` ``[in, out]``  -> ``weight`` ``[out, in]``; the attention's
   ``{query,key,value,out}_kernel`` / ``_bias`` become the ``weight`` / ``bias``
   of the ``query`` / ``key`` / ``value`` / ``out`` linears, and the Swin
   attention's raw ``{qkv,proj}_kernel`` / ``_bias`` those of its ``qkv`` /
   ``proj`` linears;
 * norm ``scale``                  -> ``weight``; BatchNorm ``mean`` / ``var``
-  (``batch_stats``)               -> ``running_mean`` / ``running_var``;
+  (``batch_stats``)               -> ``running_mean`` / ``running_var``; the
+  split-attention stage's ``{branch1,branch2,attn}_norm_{mean,var}``
+  (``batch_stats`` of the ResNeStUNet's stages) keep their names as
+  buffers;
 * the ``nn.scan``-stacked ``encoder/blocks/block/...`` ``[L, ...]`` leaves
   -> ``encoder.blocks.{i}....`` (one module per layer);
 * every other leaf (the stacked ``[K, R, ...]`` split-attention params of
@@ -47,9 +54,16 @@ import torch
 
 # flax module names that are ConvTranspose layers, per family, as a
 # pattern (models/transunet.py DecoderBlock.up, DecoderCup.head; the ViT
-# has none; models/swin.py SwinSegmenter up_{i}, up_final1, head).
+# has none; models/swin.py SwinSegmenter up_{i}, up_final1, head;
+# models/resnest.py _Upsample.t_conv, ResNeStUNet.f_tran;
+# models/mobileunet.py _Upsample.t_conv, MobileUNet.decoder_head).
 CONV_TRANSPOSE = {"transunet": r"up|head", "vit": None,
-                  "swin": r"up_\d+|up_final1|head"}
+                  "swin": r"up_\d+|up_final1|head",
+                  "resnest_unet": r"t_conv|f_tran",
+                  "mobileunet": r"t_conv|decoder_head"}
+# batch_stats leaves that keep their names (the batch-norm split-attention
+# stage's running statistics)
+_STAT_LEAF = re.compile(r"_norm_(mean|var)$")
 STACKED_PREFIX = "encoder/blocks/block/"
 _ATTN_LEAF = re.compile(r"^(query|key|value|out|qkv|proj)_(kernel|bias)$")
 _ATTN_PROJ = ("query", "key", "value", "out", "qkv", "proj")
@@ -130,7 +144,10 @@ def from_flax(flat: Dict[str, np.ndarray],
         a = np.asarray(a)
         if col == "batch_stats":
             parts = path.split("/")
-            leaf = {"mean": "running_mean", "var": "running_var"}[parts[-1]]
+            leaf = {"mean": "running_mean", "var": "running_var"}.get(
+                parts[-1], parts[-1])
+            if leaf == parts[-1] and not _STAT_LEAF.search(leaf):
+                raise KeyError(f"unknown batch_stats leaf {key!r}")
             put(parts[:-1] + [leaf], a)
             continue
         if col != "params":
@@ -158,6 +175,9 @@ def to_flax(state_dict: Dict[str, torch.Tensor],
         if parts[-1] in ("running_mean", "running_var"):
             leaf = "mean" if parts[-1] == "running_mean" else "var"
             out["batch_stats/" + "/".join(parts[:-1] + [leaf])] = a
+            continue
+        if _STAT_LEAF.search(parts[-1]):
+            out["batch_stats/" + "/".join(parts)] = a
             continue
         if parts[:2] == ["encoder", "blocks"]:
             layer = int(parts[2])
@@ -208,7 +228,7 @@ def random_flax_variables(model: torch.nn.Module,
         name = key.rsplit("/", 1)[-1]
         shape = a.shape
         if key.startswith("batch_stats/"):
-            v = (rng.uniform(0.5, 1.5, shape) if name == "var"
+            v = (rng.uniform(0.5, 1.5, shape) if name.endswith("var")
                  else 0.1 * rng.standard_normal(shape))
         elif name.endswith("kernel"):
             if len(shape) == 6:            # [K, R, kh, kw, in, out]
