@@ -11,12 +11,13 @@ Phases (each checks its results; any failure exits non-zero):
 1. print the card (``nvidia-smi``) and build the kernels from ``csrc/``;
    print ptxas's registers and spills of K2's functions; for each function
    of the kernels built on the tensor cores (the
-   attention forward core, both passes of K3's backward, K4's backward
-   kernel, and the wgmma GEMM
-   behind ``tb_linear`` and ``wa_linear``) print ptxas's registers, spills
+   attention forward core, K4's per-window forward core, both passes of
+   K3's backward, K4's backward kernel, and the wgmma GEMM
+   behind ``tb_linear`` and ``wa_linear`` with wa_linear's narrow
+   schedule) print ptxas's registers, spills
    and shared memory and the count of HMMA / HGMMA instructions in its SASS
    (``cuobjdump -sass``), which must not be 0 (the GEMM's bf16 and f32
-   builds both);
+   builds and the narrow schedule's all);
 2. hold every CUDA kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it, with medians of kernel and plain
    times, the kernel's bound (the larger of its bytes over 3.35 TB/s and
@@ -29,10 +30,17 @@ Phases (each checks its results; any failure exits non-zero):
    TransUNet shape (b64, S 80, C 512) and the ViT shape (b64, S 160, C
    1280, 8 heads), each with and without the folded final LayerNorm; K1's
    and K4's attention cores at both shapes; K4 at the TransUNet and ViT f32
-   shapes and at the Swin's stage 1 at b64 (4,096 windows of 20 tokens, C
-   96, 3 heads, bias table and shift mask) with an f32 and a bf16 input;
-   K4's backward at the four Swin stages at b64 (N 20 at C 96 / 192 / 384
-   with the shift mask, N 9 at C 768 with the bias table alone): its
+   shapes; at the four Swin stages at b64 (stage 1: 4,096 windows of 20
+   tokens, C 96, 3 heads, bias table and shift mask; N 20 at C 96 / 192 /
+   384 with the shift mask, N 9 at C 768 with the bias table alone) K4's
+   per-window core (``wa_window_fwd``, beside SDPA f32 with the additive
+   matrix as attn_mask; at stage 1 two calls bit-equal), its qkv and proj
+   products on the schedule ``linear_plan`` picks (``wa_linear_narrow``
+   or ``wa_linear``, beside F.linear f32), each also as device time a call
+   back to back, the narrow schedule's qkv product of a bf16-origin A with
+   its A_lo pass dropped (bit-equal to three passes, both timed), and K4's
+   whole forward with an f32 and a bf16 input;
+   K4's backward at the four Swin stages at b64: its
    attention kernel ``wa_attention_bwd`` against its plain version beside
    SDPA's backward, and the whole backward (autograd through
    ``WindowAttentionFused``) in f32 and bf16 against autograd through the
@@ -50,8 +58,10 @@ Phases (each checks its results; any failure exits non-zero):
    (b8) and TransUNet (b32) train shapes and its core at b8; K6 on [32,
    256, 80] labels; ``tb_linear`` and ``wa_linear`` at the ViT serving
    shapes (b64: qkv, proj, fc1, fc2) and the K5 ViT train shape (b8),
-   beside ``F.linear`` on the same operands, and the host's time to enqueue
-   one ``linear`` call (two TMA descriptors encoded per launch);
+   beside ``F.linear`` on the same operands, ``wa_linear``'s rows (and the
+   TransUNet qkv's) each beside its time recorded when its 128 x 128
+   schedule was built (``PERF.md`` section 6), and the host's time to
+   enqueue one ``linear`` call (two TMA descriptors encoded per launch);
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
@@ -67,7 +77,8 @@ Phases (each checks its results; any failure exits non-zero):
    -> the port's ``InferenceServer``), f32 and bf16, answering concurrent
    ``/predict`` requests; the launch counters are zeroed just before each
    and read just after, and the family's kernels (K1's and K4's; the
-   Swin's K4; none for the two U-Nets) must have launched;
+   Swin's K4 with its per-window core and wa_linear's narrow schedule;
+   none for the two U-Nets) must have launched;
 5. one train step at full width and each family's batch (TransUNet 32, ViT
    8, Swin 32), kernel route (K2 in the TransUNet; K3 under flash, K5 under
    pallas; K4 with its backward in the Swin) against the plain route from
@@ -96,7 +107,8 @@ Phases (each checks its results; any failure exits non-zero):
    (batch 64) and the MobileUNet (batch 256), two steps each; the counters
    are zeroed just before each run and read just after: K2 must have
    launched in every TransUNet run, K3 in the flash runs, K5 in the pallas
-   run, K4 and its backward kernel in the Swin runs, none in the U-Net
+   run, K4 (its per-window core and wa_linear's narrow schedule among its
+   kernels) and its backward kernel in the Swin runs, none in the U-Net
    runs; the loss is finite and the weights (and the BatchNorm running
    statistics) moved;
 7. K6, which no path of the system calls, as a caller uses it: the
@@ -135,6 +147,7 @@ K4_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:152"
 K1_SRC = f"{PKG}/csrc/transformer_block.cu"
 K4_SRC = f"{PKG}/csrc/window_attention.cu"
 K4B_SRC = f"{PKG}/csrc/window_attention_bwd.cu"
+GEMM_SRC = f"{PKG}/csrc/gemm_sm90.cuh"
 K4B_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:206"
 K2_SRC = f"{PKG}/csrc/group_flat_norm.cu"
 K3_SRC = f"{PKG}/csrc/flash_attention.cu"
@@ -154,11 +167,14 @@ TRAIN_BATCH = {"transunet": 32, "vit": 8, "swin": 32, "resnest_unet": 64,
 UNETS = (("resnest_unet", "d"), ("mobileunet", "e"))
 # the kernels each main path must launch
 K4_KERNELS = ("window_attention", "wa_linear", "wa_attention_core")
-K4_TRAIN_KERNELS = K4_KERNELS + ("wa_attention_bwd",)
+# K4's kernels at the Swin's shapes: the per-window core (windows of at most
+# 32 tokens) and wa_linear's narrow schedule (K a whole multiple of 96)
+K4_SWIN_KERNELS = K4_KERNELS + ("wa_window_fwd", "wa_linear_narrow")
+K4_TRAIN_KERNELS = K4_SWIN_KERNELS + ("wa_attention_bwd",)
 SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
                        "tb_attention_core") + K4_KERNELS
                  for fam in ("transunet", "vit")}
-SERVE_KERNELS["swin"] = K4_KERNELS
+SERVE_KERNELS["swin"] = K4_SWIN_KERNELS
 SERVE_KERNELS.update({fam: () for fam, _ in UNETS})
 K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
@@ -282,6 +298,24 @@ class Checks:
         return row
 
 
+# wa_linear's single-call times at the TransUNet, ViT and K5 shapes recorded
+# when its 128 x 128 schedule was built (PERF.md section 6, NVIDIA H100 80GB
+# HBM3, 700.00 W); those shapes keep that schedule, and their rows print
+# these beside their own
+RECORDED_WA_LINEAR_MS = {(5120, 1536, 512): 0.139, (10240, 3840, 1280): 1.223,
+                    (10240, 1280, 1280): 0.461, (1280, 3840, 1280): 0.214,
+                    (1280, 1280, 1280): 0.083}
+
+
+def log_beside_recorded(row, m, n, k, call) -> None:
+    """The wa_linear row's single-call time (the host's enqueue included)
+    beside the recorded one at its shape, and ``call``'s device time back
+    to back."""
+    log(f"    wa_linear {m}x{n}x{k}: {row['ms']:.4f} ms here, "
+        f"{RECORDED_WA_LINEAR_MS[(m, n, k)]:.3f} ms recorded, single calls; "
+        f"device {back_to_back_ms([call]):.4f} ms a call back to back")
+
+
 def bf16_quanta(n):
     """n bf16 quanta (2^-8 relative) of max|want|."""
     return lambda want: n * want.float().abs().max().item() / 256.0
@@ -293,14 +327,17 @@ def f32_tol(want):
 
 
 # the kernel functions built on the tensor cores: the attention kernels (K4's
-# backward among them) and the GEMM of tb_linear (bf16) and wa_linear (f32)
+# per-window forward core and its backward among them), the GEMM of
+# tb_linear (bf16) and wa_linear (f32), and wa_linear's narrow schedule
 TENSOR_CORE_KERNELS = ("attention_fwd_kernel", "fa_bwd_query_kernel",
                        "fa_bwd_key_kernel", "wa_bwd_kernel",
-                       "linear_wgmma_kernel")
+                       "wa_window_fwd_kernel", "linear_wgmma_kernel",
+                       "linear_narrow_kernel")
 # each operand type the GEMM is built for must hold wgmma (HGMMA); the
 # names demangled or not
 GEMM_BUILDS = {"bf16": r"linear_wgmma_kernel(<|I13)__nv_bfloat16",
-               "f32": r"linear_wgmma_kernel(<float|If)"}
+               "f32": r"linear_wgmma_kernel(<float|If)",
+               "f32 narrow": r"linear_narrow_kernel"}
 
 
 def kernel_report(K, kernels=TENSOR_CORE_KERNELS):
@@ -743,13 +780,15 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
                    ops=window_ops(b, s, c, heads),
                    library=mha(*args, scale), library_text=mha_text)
     xq = K.linear_plain(xf.reshape(b * s, c), qkv_w, qkv_b)
-    checks.compare("wa_linear", "qkv 5120x1536x512 f32",
-                   lambda: K.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
-                   lambda: K.linear_plain(xf.reshape(b * s, c), qkv_w, qkv_b),
-                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(xf, qkv_w, qkv_b),
-                   ops=mm(b * s, 3 * c, c, PEAK_F32_MM),
-                   library=lambda: F.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
-                   library_text="F.linear f32 (cuBLAS, TF32 off)")
+    row = checks.compare("wa_linear", "qkv 5120x1536x512 f32",
+                         lambda: K.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
+                         lambda: K.linear_plain(xf.reshape(b * s, c), qkv_w, qkv_b),
+                         f32_tol, "1e-4 x max(1,|plain|)", inputs=(xf, qkv_w, qkv_b),
+                         ops=mm(b * s, 3 * c, c, PEAK_F32_MM),
+                         library=lambda: F.linear(xf.reshape(b * s, c), qkv_w, qkv_b),
+                         library_text="F.linear f32 (cuBLAS, TF32 off)")
+    log_beside_recorded(row, b * s, 3 * c, c,
+                   lambda: K.linear(xf.reshape(b * s, c), qkv_w, qkv_b))
     checks.compare("wa_attention_core", "b64 S80 h4 d128 f32",
                    lambda: K.attention_core(xq, s, heads, scale),
                    lambda: K.attention_core_plain(xq, s, heads, scale),
@@ -893,13 +932,89 @@ def k4_bwd_split(x, ws, am, heads, go) -> None:
     torch.cuda.empty_cache()
 
 
+def k4_forward_kernels(checks: Checks, where, x, ws, am, heads,
+                       first: bool) -> None:
+    """K4's two forward kernels at a Swin stage's shape (``x`` f32): the
+    per-window core (``wa_window_fwd``) against its plain version beside
+    SDPA f32 with the additive matrix as its attn_mask; wa_linear for the
+    qkv and the proj products on the schedule linear_plan picks (the narrow
+    one's rows named ``wa_linear_narrow``) against linear_plain beside
+    F.linear f32 (TF32 off); each also as device time a call back to back;
+    the narrow schedule's qkv product of an A upcast from bf16 without its
+    A_lo pass, bit-equal to the three-pass one, both timed; at ``first``
+    the core's two calls bit-equal."""
+    import torch
+    import torch.nn.functional as F
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    nbw, n, c = x.shape
+    scale = (c // heads) ** -0.5
+    x2 = x.reshape(-1, c)
+    qkv = K.linear(x2, ws[0], ws[1])
+    mask = am.repeat(nbw // am.shape[0], 1, 1, 1)
+    args = (qkv, n, heads, scale)
+    checks.compare("wa_window_fwd", f"K4 core, {where}",
+                   lambda: K.attention_core(*args, addmask=am),
+                   lambda: K.attention_core_plain(*args, addmask=am),
+                   f32_tol, "1e-4 x max(1,|plain|)", inputs=(qkv, am),
+                   ops=attn(nbw, heads, n, c // heads),
+                   library=lambda: sdpa(qkv, n, heads, scale, mask),
+                   library_text="SDPA f32, the additive matrix as attn_mask")
+    ctx = K.attention_core(*args, addmask=am)
+    if first:
+        same = torch.equal(ctx, K.attention_core(*args, addmask=am))
+        log(f"  wa_window_fwd two calls: the context "
+            f"{'bit-equal' if same else 'DIFFERS'}")
+        require(same, "wa_window_fwd: two calls on the same inputs differ")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for what, a, w, b in (("qkv", x2, ws[0], ws[1]), ("proj", ctx, ws[2], ws[3])):
+        m, k = a.shape
+        grid = K.linear_plan(m, w.shape[0], k, torch.float32, sms)
+        row = checks.compare(
+            "wa_linear_narrow" if grid else "wa_linear",
+            f"K4 {what} {m}x{w.shape[0]}x{k} {'narrow' if grid else '128x128'}, {where}",
+            lambda: K.linear(a, w, b), lambda: K.linear_plain(a, w, b),
+            f32_tol, "1e-4 x max(1,|plain|)", inputs=(a, w, b),
+            ops=mm(m, w.shape[0], k, PEAK_F32_MM),
+            library=lambda: F.linear(a, w, b), library_text="F.linear f32, TF32 off")
+        log(f"    device ms a call, back to back: {back_to_back_ms([lambda: K.linear(a, w, b)]):.4f} "
+            f"(bound {row['bound_ms']:.4f})")
+    log(f"    core device ms a call, back to back: "
+        f"{back_to_back_ms([lambda: K.attention_core(*args, addmask=am)]):.4f}")
+    # the qkv product of an A upcast from bf16 on the narrow schedule, with
+    # and without its A_lo pass (as under a bf16 x, where linear_plan may
+    # also pick it for the two passes alone)
+    a16 = x2.to(torch.bfloat16).float()
+    rows, cols = a16.shape[0], ws[0].shape[0]
+    bm, bn = K.NARROW_TILE
+    grid = min(-(-rows // bm) * -(-cols // bn), K.NARROW_BLOCKS_PER_SM * sms)
+    lib = K.build()
+
+    def narrow(a_tf32):
+        out = torch.empty((rows, cols), device=x.device)
+        rc = lib.wa_linear(K._ptr(a16), K._ptr(ws[0]), K._ptr(ws[1]), None, 0,
+                           K._ptr(out), 0, rows, cols, c, 0, a_tf32, grid, K._stream())
+        require(rc == 0, f"wa_linear narrow: cudaError {rc}")
+        return out
+    three, two = narrow(0), narrow(1)
+    same = torch.equal(three, two)
+    ms3 = back_to_back_ms([lambda: narrow(0)])
+    ms2 = back_to_back_ms([lambda: narrow(1)])
+    log(f"  wa_linear_narrow qkv {rows}x{cols}x{c} of a bf16-origin A: A_lo pass dropped "
+        f"{'bit-equal to' if same else 'DIFFERS from'} three passes; device "
+        f"{ms2:.4f} ms against {ms3:.4f} ms a call, back to back")
+    require(same, f"wa_linear a_tf32 at {where}: not bit-equal to three passes")
+    del qkv, ctx, mask, a16, three, two
+
+
 def phase_swin_k4(checks: Checks, dev, rand) -> None:
-    """K4 at the Swin's stage-1 shape at b64 (4,096 windows of 4x5 tokens,
-    C 96, 3 heads, the bias table and the 64-window shift mask), f32 and
-    bf16 x; at each of the four stages its backward's attention kernel
-    against its plain version and the whole backward against autograd of
-    the plain version, f32 and bf16 x; at stage 1 the kernel's determinism,
-    the backward's steps and its memory beside the plain route's."""
+    """K4 at the Swin's four stage shapes at b64 (stage 1: 4,096 windows of
+    4x5 tokens, C 96, 3 heads, the bias table and the 64-window shift
+    mask): its two forward kernels (``k4_forward_kernels``) and the whole
+    forward against its plain version, f32 and bf16 x; its backward's
+    attention kernel against its plain version and the whole backward
+    against autograd of the plain version, f32 and bf16 x; at stage 1 the
+    kernels' determinism, the backward's steps and its memory beside the
+    plain route's."""
     import torch
     from ultrasound_modeling_tpu_torch.ops import kernels as K
 
@@ -910,6 +1025,7 @@ def phase_swin_k4(checks: Checks, dev, rand) -> None:
         scale = (cs // hs) ** -0.5
         where = (f"Swin stage {stage + 1} nBW{nbw} N{n} C{cs} h{hs} "
                  f"{'mask' if skw['mask'] is not None else 'bias'}")
+        k4_forward_kernels(checks, where, xs, ws, am, hs, stage == 0)
         core = k4_bwd_core_check(checks, f"K4 backward core, {where}", xs, ws,
                                  am, hs)
         if stage == 0:
@@ -928,19 +1044,23 @@ def phase_swin_k4(checks: Checks, dev, rand) -> None:
             f32 = dname == "f32"
             tol, text = ((f32_tol, "1e-4 x max(1,|plain|)") if f32
                          else (bf16_quanta(1), "1 bf16 quantum of max|plain|"))
-            if stage == 0:
-                label = f"K4 Swin stage 1 nBW{nbw} N{n} C{cs} h{hs} mask {dname}"
-                checks.compare("window_attention", label,
-                               lambda: K.window_attention(*args[:5], hs,
-                                                          bias_table=table, **skw),
-                               lambda: K.window_attention_plain(
-                                   *args[:5], hs, bias_table=table, **skw),
-                               tol, text, inputs=(*args[:5], am),
-                               ops=window_ops(nbw, n, cs, hs),
-                               library=mha(*fargs, hs, scale, am),
-                               library_text="F.multi_head_attention_forward f32, its "
-                                            "own d^-0.5" + ("" if f32 else ", on x "
-                                                            "upcast beforehand"))
+            # the forward's bf16 output at stages 2-4: 2 quanta of max|plain|,
+            # what one rounding flip of an element in max's binade can reach
+            # (at stage 4 max|plain| is 1.86, a flip there 2^-7); stage 1's
+            # row keeps its 1 quantum
+            ftol, ftext = ((bf16_quanta(2), "2 bf16 quanta of max|plain|")
+                           if stage and not f32 else (tol, text))
+            checks.compare("window_attention", f"K4 {where} {dname}",
+                           lambda: K.window_attention(*args[:5], hs,
+                                                      bias_table=table, **skw),
+                           lambda: K.window_attention_plain(
+                               *args[:5], hs, bias_table=table, **skw),
+                           ftol, ftext, inputs=(*args[:5], am),
+                           ops=window_ops(nbw, n, cs, hs),
+                           library=mha(*fargs, hs, scale, am),
+                           library_text="F.multi_head_attention_forward f32, its "
+                                        "own d^-0.5" + ("" if f32 else ", on x "
+                                                        "upcast beforehand"))
             go = rand(nbw, n, cs, dtype=dt)
             grads = (tol,) + (f32_tol,) * 5
             label = ("K4 backward, same, " + dname if stage == 0
@@ -1127,13 +1247,16 @@ def phase_gemm(checks: Checks, dev, seed: int) -> None:
                         f"the fused epilogue")
         else:
             lib_text = f"F.linear {'bf16' if dt == bf else 'f32, TF32 off'}"
-        checks.compare(name, f"{label} {m}x{n}x{k} ->{'bf16' if out_dt == bf else 'f32'}",
-                       lambda: K.linear(a, w, b, gelu=gelu, residual=r, out_dtype=out_dt),
-                       lambda: K.linear_plain(a, w, b, gelu=gelu, residual=r,
-                                              out_dtype=out_dt),
-                       tol, text, inputs=(a, w, b, r),
-                       ops=mm(m, n, k, PEAK_BF16 if dt == bf else PEAK_F32_MM),
-                       library=lambda: F.linear(a, w, b_dt), library_text=lib_text)
+        row = checks.compare(
+            name, f"{label} {m}x{n}x{k} ->{'bf16' if out_dt == bf else 'f32'}",
+            lambda: K.linear(a, w, b, gelu=gelu, residual=r, out_dtype=out_dt),
+            lambda: K.linear_plain(a, w, b, gelu=gelu, residual=r, out_dtype=out_dt),
+            tol, text, inputs=(a, w, b, r),
+            ops=mm(m, n, k, PEAK_BF16 if dt == bf else PEAK_F32_MM),
+            library=lambda: F.linear(a, w, b_dt), library_text=lib_text)
+        if name == "wa_linear":
+            log_beside_recorded(row, m, n, k, lambda: K.linear(a, w, b, gelu=gelu, residual=r,
+                                                          out_dtype=out_dt))
         del a, w, r
     # the host's share of a launch: wrapper checks, two tensor maps encoded
     # (cuTensorMapEncodeTiled), the launch; a tiny product, so the queue
@@ -1863,6 +1986,7 @@ def main(argv=None) -> int:
              "tb_layer_norm": (K1_SRC, K1_TPU), "tb_linear": (K1_SRC, K1_TPU),
              "tb_attention_core": (K1_SRC, K1_TPU),
              "wa_linear": (K4_SRC, K4_TPU), "wa_attention_core": (K4_SRC, K4_TPU),
+             "wa_window_fwd": (K4_SRC, K4_TPU), "wa_linear_narrow": (GEMM_SRC, K4_TPU),
              "wa_attention_bwd": (K4B_SRC, K4B_TPU),
              "group_flat_norm_fwd": (K2_SRC, K2_FWD_TPU),
              "group_flat_norm_bwd": (K2_SRC, K2_BWD_TPU),

@@ -662,3 +662,167 @@ def test_unet_family_full_width_forward_matches_the_cpu(cuda, family):
     assert (f32[:4].cpu() - cpu).abs().max().item() <= 1e-4
     assert (bf16 - f32).abs().max().item() <= 0.05
     assert (bf16.argmax(-1) == f32.argmax(-1)).float().mean().item() >= 0.99
+
+
+# K4's forward at the Swin's shapes: the per-window core (wa_window_fwd_kernel,
+# windows of at most 32 tokens) and the narrow schedule of the f32 GEMM
+# (linear_narrow_kernel, K a whole multiple of 96)
+
+# (N, head dim): stage 4's padded 3x3, the 4x5 window and the longest window
+# the kernel takes, at the Swin's d 32, and at head dims that are not 16-byte
+# rows (18), past one 32-column pass (40) and the limit (160)
+WINDOW_FWD_SHAPES = [(n, d) for n in (9, 20, 32) for d in (32, 18, 40, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", WINDOW_FWD_SHAPES)
+@pytest.mark.parametrize("masked", [True, False])
+def test_window_core_matches_plain(cuda, n, d, masked):
+    """wa_attention_core at N <= 32 runs the per-window kernel (one launch
+    of it, beside the one count of its entry point): against its plain
+    version within 1e-4 x max(1, max|plain|), with an additive matrix of
+    three variants and without one, on 3 x 5 windows of 2 heads."""
+    g = torch.Generator().manual_seed(30 + n + d)
+    heads, nw = 2, 3
+    qkv = _qkv(g, cuda, 5 * nw, n, heads * d)
+    am = _rand(g, cuda, nw, heads, n, n) if masked else None
+    K.reset_launch_counts()
+    got = K.attention_core(qkv, n, heads, d ** -0.5, addmask=am)
+    assert K.LAUNCHES["wa_attention_core"] == K.LAUNCHES["wa_window_fwd"] == 1
+    want = K.attention_core_plain(qkv, n, heads, d ** -0.5, addmask=am)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= _f32_tol(want)
+
+
+@pytest.mark.cuda
+def test_window_core_is_deterministic(cuda):
+    """Two calls of the per-window core on the same inputs give the same
+    bits (each context element has one writer and a fixed order of sums)."""
+    g = torch.Generator().manual_seed(31)
+    qkv = _qkv(g, cuda, 256, 20, 96)
+    am = _rand(g, cuda, 64, 3, 20, 20)
+    first = K.attention_core(qkv, 20, 3, 32 ** -0.5, addmask=am)
+    assert torch.equal(first, K.attention_core(qkv, 20, 3, 32 ** -0.5, addmask=am))
+
+
+def _swin_gemm_shapes(frames):
+    """(M, N, K) of K4's products at the Swin's four stages for `frames`
+    frames: qkv (N 3C, K C), proj and do (N C, K C), dx (N C, K 3C)."""
+    out = []
+    for grid, window, c, _, _ in SWIN_STAGES.values():
+        gh, gw = -(-grid[0] // window[0]) * window[0], grid[1]
+        m = frames * gh * gw
+        out += [(m, 3 * c, c), (m, c, c), (m, c, 3 * c)]
+    return out
+
+
+# the Swin's products at b64 serving, and the tile edges: M one past and
+# one short of a 128-row tile, N not a multiple of 96 (a ragged, odd last
+# 96-column tile, whose epilogue stores scalars, and one under a tile)
+NARROW_SHAPES = _swin_gemm_shapes(64) + [(128 * 7 + 1, 288, 96),
+                                         (128 * 7 - 1, 192, 192),
+                                         (200, 101, 96), (130, 40, 288)]
+
+
+def _narrow(a, w, bias=None, a_tf32=False):
+    """wa_linear's narrow schedule on any shape, whatever linear_plan would
+    pick (the C entry point called as linear calls it), f32 out."""
+    m, k = a.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), device=a.device)
+    bm, bn = K.NARROW_TILE
+    grid = min(-(-m // bm) * -(-n // bn), K.NARROW_BLOCKS_PER_SM * K._sm_count(a.device))
+    rc = K.build().wa_linear(K._ptr(a), K._ptr(w), K._ptr(bias), None, 0, K._ptr(out),
+                             0, m, n, k, 0, int(a_tf32), grid, K._stream())
+    assert rc == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", NARROW_SHAPES)
+def test_wa_linear_narrow_matches_plain(cuda, m, n, k):
+    """wa_linear at the Swin's products and the tile edges, on the schedule
+    linear_plan picks (one launch, counted as narrow when it is), against
+    linear_plain within 1e-4 x max(1, max|plain|) with a bias, and bf16 out
+    with an f32 residual within 2 bf16 quanta (one rounding flip moves an
+    element by up to 2^-7 of itself); the narrow schedule itself at every
+    one of these shapes, and on an A upcast from bf16 with its A_lo pass
+    dropped: the same bits as with it."""
+    g = torch.Generator().manual_seed(40 + n + k)
+    a = _rand(g, cuda, m, k)
+    w = _rand(g, cuda, n, k, scale=k ** -0.5)
+    b = _rand(g, cuda, n)
+    r = _rand(g, cuda, m, n)
+    K.reset_launch_counts()
+    got = K.linear(a, w, b)
+    narrow = K.linear_plan(m, n, k, torch.float32, K._sm_count(cuda)) > 0
+    assert K.LAUNCHES["wa_linear"] == 1 and K.LAUNCHES["wa_linear_narrow"] == narrow
+    want = K.linear_plain(a, w, b)
+    assert (got - want).abs().max().item() <= _f32_tol(want)
+    assert (_narrow(a, w, b) - want).abs().max().item() <= _f32_tol(want)
+    got = K.linear(a, w, residual=r, out_dtype=BF)
+    want = K.linear_plain(a, w, residual=r, out_dtype=BF)
+    assert (got.float() - want.float()).abs().max().item() <= _quanta(want, 2)
+    a16 = a.to(BF).float()
+    three = _narrow(a16, w, b)
+    assert torch.equal(three, _narrow(a16, w, b, a_tf32=True))
+    assert (three - K.linear_plain(a16, w, b)).abs().max().item() <= _f32_tol(three)
+
+
+@pytest.mark.cuda
+def test_wa_linear_narrow_holds_the_f32_contract_at_swin_depth(cuda):
+    """The narrow schedule at the Swin's deepest K (dx at stage 4: K 2304)
+    against a float64 product: within 1e-5 of max|out|, three passes and,
+    on an A upcast from bf16, two."""
+    g = torch.Generator().manual_seed(12)
+    a = _rand(g, cuda, 1728, 2304)
+    w = _rand(g, cuda, 768, 2304, scale=2304 ** -0.5)
+    K.reset_launch_counts()
+    got = K.linear(a, w)
+    assert K.LAUNCHES["wa_linear_narrow"] == 1
+    want = a.double() @ w.double().t()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    two = K.linear(a.to(BF).float(), w, a_tf32=True)
+    want = a.to(BF).double() @ w.double().t()
+    assert (two.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(5120, 1536, 512), (10240, 3840, 1280),
+                                   (1280, 1280, 1280)])
+def test_wa_linear_keeps_the_128_tile_at_transunet_and_vit_widths(cuda, m, n, k):
+    """The TransUNet's, the ViT's and K5's f32 products stay on the 128 x
+    128 schedule (no narrow launch), within 1e-4 of plain."""
+    g = torch.Generator().manual_seed(13)
+    a, w = _rand(g, cuda, m, k), _rand(g, cuda, n, k, scale=k ** -0.5)
+    K.reset_launch_counts()
+    got = K.linear(a, w)
+    assert K.LAUNCHES["wa_linear"] == 1 and K.LAUNCHES["wa_linear_narrow"] == 0
+    want = K.linear_plain(a, w)
+    assert (got - want).abs().max().item() <= _f32_tol(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(SWIN_STAGES))
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_window_attention_forward_at_swin_stages(cuda, stage, dtype):
+    """K4's whole forward at the four Swin stage shapes, f32 and bf16 x:
+    two GEMMs on the schedules linear_plan picks (the qkv one without its
+    A_lo pass under bf16) and the per-window core; against the plain
+    version within 1e-4 x max(1, max|plain|) (f32) or 2 bf16 quanta of
+    max|plain| (one rounding flip of an element in max's binade)."""
+    args, heads, rel, mask = _swin_stage_args(torch.Generator().manual_seed(7),
+                                              cuda, stage, dtype=dtype)
+    kw = dict(bias_table=args[5], rel_index=rel, mask=mask)
+    K.reset_launch_counts()
+    got = K.window_attention(*args[:5], heads, **kw)
+    m, c = args[0].shape[0] * args[0].shape[1], args[0].shape[2]
+    sms = K._sm_count(cuda)
+    narrow = ((K.linear_plan(m, 3 * c, c, torch.float32, sms, dtype == BF) > 0)
+              + (K.linear_plan(m, c, c, torch.float32, sms) > 0))
+    assert K.LAUNCHES["wa_linear"] == 2 and K.LAUNCHES["wa_window_fwd"] == 1
+    assert K.LAUNCHES["wa_linear_narrow"] == narrow
+    want = K.window_attention_plain(*args[:5], heads, **kw)
+    assert got.dtype == want.dtype == dtype
+    tol = _f32_tol(want) if dtype == torch.float32 else _quanta(want, 2)
+    assert (got.float() - want.float()).abs().max().item() <= tol

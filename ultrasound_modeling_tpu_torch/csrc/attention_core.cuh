@@ -144,6 +144,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// waits until at most n of this thread's committed groups are in flight
+template <int n> __device__ __forceinline__ void cp_async_wait_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 // keeps the compiler from hoisting work on v out of a loop (a register
 // barrier: v is "changed" here at no cost)
 __device__ __forceinline__ void reg_fence(float& v) { asm volatile("" : "+f"(v)); }
@@ -279,6 +284,54 @@ struct RowStream {
     }
   }
 };
+
+// ---- per-window kernels (one warp per window and head: K4's forward core
+// at N <= 32 in window_attention.cu, its backward in window_attention_bwd.cu) ----
+
+// 16-row MMA tiles of N rows
+__host__ __device__ constexpr int win_mtiles(int nt) { return (nt + 1) / 2; }
+
+constexpr int WIN_SMEM_MAX = 232448;  // a block's dynamic shared memory on sm_90
+
+// One warp stages src[r * stride + c] (r < rows, c < d) into dst[r * ld + c]
+// and zeros up to rows_pad x dk: cp.async when vec (completed by the
+// caller's commit, wait and __syncwarp), else plain copies.
+__device__ __forceinline__ void warp_stage(float* dst, int ld, const float* src, size_t stride,
+                                           int rows, int d, int rows_pad, int dk, bool vec) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {
+    const int nch = dk / 4;
+    for (int e = lane; e < rows_pad * nch; e += 32) {
+      const int r = e / nch, c = (e - r * nch) * 4;
+      const bool in = r < rows && c < d;
+      cp_async16(dst + r * ld + c, in ? (const void*)(src + r * stride + c) : (const void*)src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = lane; e < rows_pad * dk; e += 32) {
+      const int r = e / dk, c = e - r * dk;
+      dst[r * ld + c] = (r < rows && c < d) ? src[r * stride + c] : 0.f;
+    }
+  }
+}
+
+// acc[mt][j] += (a_scale * A[16mt .. 16mt+16, :]) . B[8j .. 8j+8, :]^T over
+// nks k-steps of 8 columns: A and B row operands in shared memory [rows][ld]
+template <int MT, int NT>
+__device__ __forceinline__ void rows_product(float (&acc)[MT][NT][4], const float* As,
+                                             const float* Bs, int ld, int nks, float a_scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int ks = 0; ks < nks; ++ks) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* a = As + (16 * mt + g) * ld + 8 * ks + t;
+      const uint32_t v[4] = {__float_as_uint(a[0]), __float_as_uint(a[8 * ld]),
+                             __float_as_uint(a[4]), __float_as_uint(a[8 * ld + 4])};
+      rows_step<NT>(acc[mt], v, a_scale, Bs, ld, ks);
+    }
+  }
+}
 
 // ---- products with A in registers (the scores layout) ----
 //
@@ -425,6 +478,78 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The additive matrix's values for the warp's query tile mt in the scores
+// layout (below): add[j][e] (row 16mt + g) and add[j][2 + e] (row 16mt + g +
+// 8) at key column 8j + 2t + e of the window's [N, N] matrix am; 0 where am
+// is null or the row or column is at or past N.  Loaded ahead of the
+// product that needs them, so their latency hides under it.
+template <int NT>
+__device__ __forceinline__ void load_addmask(float (&add)[NT][4], const float* am, int mt,
+                                             int N) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = 16 * mt + g, q1 = q0 + 8;
+  const float* a0 = am && q0 < N ? am + (size_t)q0 * N : nullptr;
+  const float* a1 = am && q1 < N ? am + (size_t)q1 * N : nullptr;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      add[j][e] = a0 && col < N ? a0[col] : 0.f;
+      add[j][2 + e] = a1 && col < N ? a1[col] : 0.f;
+    }
+}
+
+// p = softmax(s + add) over each whole row of the warp's query tile mt, in
+// the scores layout (below): rows 16mt + g (+8), key columns 8j + 2t (+1);
+// add from load_addmask.  Key columns at or past N take -inf before the row
+// max, so their p is 0; query rows at or past N get p = 0 (they are neither
+// stored nor summed).
+template <int NT>
+__device__ __forceinline__ void window_softmax(float (&s)[NT][4], const float (&add)[NT][4],
+                                               int mt, int N) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = 16 * mt + g, q1 = q0 + 8;
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      float v0 = -INFINITY, v1 = -INFINITY;
+      if (col < N) {
+        v0 = s[j][e] + add[j][e];
+        v1 = s[j][2 + e] + add[j][2 + e];
+      }
+      s[j][e] = v0;
+      s[j][2 + e] = v1;
+      m0 = fmaxf(m0, v0);
+      m1 = fmaxf(m1, v1);
+    }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = expf(s[j][e] - m0);
+      s[j][2 + e] = expf(s[j][2 + e] - m1);
+      l0 += s[j][e];
+      l1 += s[j][2 + e];
+    }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = q0 < N ? 1.f / l0 : 0.f, i1 = q1 < N ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] *= i0;
+      s[j][2 + e] *= i1;
+    }
 }
 
 // dst = src in TSave at rows [r0, r0 + rows) and columns c, C + c, 2C + c

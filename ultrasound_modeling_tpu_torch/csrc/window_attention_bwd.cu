@@ -54,55 +54,11 @@ namespace {
 
 constexpr int WB_MAX_N = 32;
 constexpr int WB_MAX_WARPS = 4;
-constexpr int WB_SMEM_MAX = 232448;  // a block's dynamic shared memory on sm_90
 constexpr int WB_REDUCE_THREADS = 256;
-
-// 16-row MMA tiles of N rows
-__host__ __device__ constexpr int wb_mtiles(int nt) { return (nt + 1) / 2; }
 
 // floats of one staged [16*MT, smem_ld(pad_d(d))] tile
 inline size_t wb_tile_floats(int nt, int d) {
-  return (size_t)16 * wb_mtiles(nt) * um::smem_ld<float>(um::pad_d(d));
-}
-
-// One warp stages src[r * stride + c] (r < rows, c < d) into dst[r * ld + c]
-// and zeros up to rows_pad x dk: cp.async when vec (completed by the
-// caller's commit, wait and __syncwarp), else plain copies.
-__device__ __forceinline__ void warp_stage(float* dst, int ld, const float* src, size_t stride,
-                                           int rows, int d, int rows_pad, int dk, bool vec) {
-  const int lane = threadIdx.x & 31;
-  if (vec) {
-    const int nch = dk / 4;
-    for (int e = lane; e < rows_pad * nch; e += 32) {
-      const int r = e / nch, c = (e - r * nch) * 4;
-      const bool in = r < rows && c < d;
-      um::cp_async16(dst + r * ld + c, in ? (const void*)(src + r * stride + c) : (const void*)src,
-                     in ? 16 : 0);
-    }
-  } else {
-    for (int e = lane; e < rows_pad * dk; e += 32) {
-      const int r = e / dk, c = e - r * dk;
-      dst[r * ld + c] = (r < rows && c < d) ? src[r * stride + c] : 0.f;
-    }
-  }
-}
-
-// acc[mt][j] += (a_scale * A[16mt .. 16mt+16, :]) . B[8j .. 8j+8, :]^T over
-// nks k-steps of 8 columns: A and B row operands in shared memory [rows][ld]
-template <int MT, int NT>
-__device__ __forceinline__ void rows_product(float (&acc)[MT][NT][4], const float* As,
-                                             const float* Bs, int ld, int nks, float a_scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 1
-  for (int ks = 0; ks < nks; ++ks) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const float* a = As + (16 * mt + g) * ld + 8 * ks + t;
-      const uint32_t v[4] = {__float_as_uint(a[0]), __float_as_uint(a[8 * ld]),
-                             __float_as_uint(a[4]), __float_as_uint(a[8 * ld + 4])};
-      um::rows_step<NT>(acc[mt], v, a_scale, Bs, ld, ks);
-    }
-  }
+  return (size_t)16 * um::win_mtiles(nt) * um::smem_ld<float>(um::pad_d(d));
 }
 
 // Ts[key][query] = x[query][key] for the warp's C fragments x (queries
@@ -151,7 +107,7 @@ wa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
               const float* __restrict__ addmask, float* __restrict__ dqkv,
               float* __restrict__ ctx, float* __restrict__ partial, int N, int C, int H, int nW,
               int reps, int per, int work, float scale) {
-  constexpr int MT = wb_mtiles(NT);
+  constexpr int MT = um::win_mtiles(NT);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int w = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -180,10 +136,10 @@ wa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
     const float* base = qkv + b * N * row3 + (size_t)h * d;
     const float* gb = dout + b * N * C + (size_t)h * d;
     const bool vec = um::stage_vec(base, row3, d) && um::stage_vec(gb, (size_t)C, d);
-    warp_stage(Qs, ld, base, row3, N, d, rows_pad, dk, vec);
-    warp_stage(Ks, ld, base + C, row3, N, d, rows_pad, dk, vec);
-    warp_stage(Vs, ld, base + 2 * C, row3, N, d, rows_pad, dk, vec);
-    warp_stage(Gs, ld, gb, (size_t)C, N, d, rows_pad, dk, vec);
+    um::warp_stage(Qs, ld, base, row3, N, d, rows_pad, dk, vec);
+    um::warp_stage(Ks, ld, base + C, row3, N, d, rows_pad, dk, vec);
+    um::warp_stage(Vs, ld, base + 2 * C, row3, N, d, rows_pad, dk, vec);
+    um::warp_stage(Gs, ld, gb, (size_t)C, N, d, rows_pad, dk, vec);
     um::cp_async_commit();
     um::cp_async_wait();
     __syncwarp();
@@ -195,53 +151,20 @@ wa_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][j][e] = dp[mt][j][e] = 0.f;
-    rows_product<MT, NT>(s, Qs, Ks, ld, nks, scale);  // (q*scale).k^T, as the forward
-    rows_product<MT, NT>(dp, Gs, Vs, ld, nks, 1.f);   // do.v^T
+    um::rows_product<MT, NT>(s, Qs, Ks, ld, nks, scale);  // (q*scale).k^T, as the forward
+    um::rows_product<MT, NT>(dp, Gs, Vs, ld, nks, 1.f);   // do.v^T
 
     // p = softmax(s + A) over each whole row; dS = p * (dP - rowsum(dP * p))
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      const int q0 = 16 * mt + g, q1 = q0 + 8;
-      const float* a0 = am && q0 < N ? am + (size_t)q0 * N : nullptr;
-      const float* a1 = am && q1 < N ? am + (size_t)q1 * N : nullptr;
-      float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * t + e;
-          float v0 = -INFINITY, v1 = -INFINITY;
-          if (col < N) {
-            v0 = s[mt][j][e] + (a0 ? a0[col] : 0.f);
-            v1 = s[mt][j][2 + e] + (a1 ? a1[col] : 0.f);
-          }
-          s[mt][j][e] = v0;
-          s[mt][j][2 + e] = v1;
-          m0 = fmaxf(m0, v0);
-          m1 = fmaxf(m1, v1);
-        }
-      m0 = um::quad_max(m0);
-      m1 = um::quad_max(m1);
-      float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[mt][j][e] = expf(s[mt][j][e] - m0);
-          s[mt][j][2 + e] = expf(s[mt][j][2 + e] - m1);
-          l0 += s[mt][j][e];
-          l1 += s[mt][j][2 + e];
-        }
-      l0 = um::quad_sum(l0);
-      l1 = um::quad_sum(l1);
-      const float i0 = q0 < N ? 1.f / l0 : 0.f, i1 = q1 < N ? 1.f / l1 : 0.f;
+      float add[NT][4];
+      um::load_addmask<NT>(add, am, mt, N);
+      um::window_softmax<NT>(s[mt], add, mt, N);
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          s[mt][j][e] *= i0;
-          s[mt][j][2 + e] *= i1;
           rs0 += dp[mt][j][e] * s[mt][j][e];
           rs1 += dp[mt][j][2 + e] * s[mt][j][2 + e];
         }
@@ -336,7 +259,7 @@ int launch_bwd(const float* qkv, const float* dout, const float* addmask, float*
                float* ctx, float* partial, int N, int C, int H, int nW, int reps, int per,
                int work, float scale, cudaStream_t stream) {
   const size_t warp_bytes = 4 * wb_tile_floats(NT, C / H) * sizeof(float);
-  const int warps = (int)std::min<size_t>(WB_MAX_WARPS, WB_SMEM_MAX / warp_bytes);
+  const int warps = (int)std::min<size_t>(WB_MAX_WARPS, um::WIN_SMEM_MAX / warp_bytes);
   if (warps < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = warps * warp_bytes;
   auto kern = wa_bwd_kernel<NT>;

@@ -18,8 +18,12 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   layer.  ``x`` is float32 or bfloat16, the weights float32, the products
   f32 and the output in x's dtype.  Built from ``linear`` (``wa_linear``:
   the same GEMM on f32 operands as 3xTF32 ``wgmma``, the f32 contract on
-  the tensor cores) and ``attention_core`` with an additive matrix
-  (``csrc/window_attention.cu``).  ``WindowAttentionFused`` adds the
+  the tensor cores; at the Swin's widths its narrow schedule, 128 x 96
+  tiles on persistent blocks, chosen by :func:`linear_plan`, without the
+  A_lo pass on an upcast bf16 x) and ``attention_core`` with an additive
+  matrix (``csrc/window_attention.cu``: windows of at most 32 tokens on a
+  warp per window and head, ``wa_window_fwd_kernel``).
+  ``WindowAttentionFused`` adds the
   recompute backward (``_fused_attn_bwd`` ``:206``, XLA in the JAX
   package): qkv and ``g . proj_w`` on ``wa_linear``, the attention part
   (recomputed P, dq | dk | dv, the context and d_addmask) in one kernel,
@@ -98,7 +102,8 @@ SOURCES = {
         "tb_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "tb_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P]},
     "window_attention.cu": {
-        "wa_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        "wa_linear": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
         "wa_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
     "window_attention_bwd.cu": {
         "wa_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -121,12 +126,22 @@ SOURCES = {
 MAX_SEQ = 160    # attention_core / flash_attention limits (csrc/*.cu)
 MAX_HEAD_DIM = 160
 WINDOW_BWD_MAX_SEQ = 32  # wa_attention_bwd's window limit (head dim as above)
+# wa_attention_core runs its per-window kernel (wa_window_fwd_kernel) on
+# windows of at most this many tokens, attention_fwd_kernel above
+WINDOW_FWD_MAX_SEQ = 32
+# the f32 GEMM's narrow schedule (csrc/gemm_sm90.cuh linear_narrow_kernel):
+# its output tile and its persistent blocks an SM
+NARROW_TILE = (128, 96)
+NARROW_BLOCKS_PER_SM = 1
 
 # launches per CUDA entry point (csrc/*.cu), plus one per call of the three
 # ported TPU kernels, K1, K4 and K5, that run a sequence of entry points
-# (K2's, K3's and K6's functions are one entry point each)
+# (K2's, K3's and K6's functions are one entry point each), plus the
+# launches of K4's two shape-chosen kernels within their entry points:
+# wa_window_fwd (wa_attention_core's per-window kernel) and
+# wa_linear_narrow (wa_linear's narrow schedule)
 LAUNCHES = {"transformer_block": 0, "window_attention": 0,
-            "attention_train": 0,
+            "attention_train": 0, "wa_window_fwd": 0, "wa_linear_narrow": 0,
             **{fn: 0 for fns in SOURCES.values() for fn in fns}}
 # inputs that K2 / K3 received in a layout their kernels do not read and
 # copied (a non-contiguous conv output or incoming gradient; for K2 also a
@@ -288,9 +303,11 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float,
 def linear_plain(a: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, gelu: bool = False,
                  residual: Optional[torch.Tensor] = None,
-                 out_dtype: torch.dtype = _F32) -> torch.Tensor:
+                 out_dtype: torch.dtype = _F32,
+                 a_tf32: bool = False) -> torch.Tensor:
     # bf16 operands upcast exactly, so this is f32 accumulation of the
-    # exact products (with TF32 off on the card)
+    # exact products (with TF32 off on the card); a_tf32 changes nothing
+    # here (see linear)
     y = a.float() @ w.float().t()
     if bias is not None:
         y = y + bias
@@ -301,15 +318,50 @@ def linear_plain(a: torch.Tensor, w: torch.Tensor,
     return y.to(out_dtype)
 
 
+def is_tf32(a: torch.Tensor) -> bool:
+    """True when every value of the float32 ``a`` is exactly a TF32 value
+    (its low 13 mantissa bits zero), as an upcast bfloat16 is."""
+    return bool(((a.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def linear_plan(m: int, n: int, k: int, dtype: torch.dtype, sm_count: int,
+                a_tf32: bool = False) -> int:
+    """The schedule of the f32 ``wgmma`` GEMM for an ``[m, k] x [n, k]^T``
+    product: the persistent blocks of the narrow schedule (``NARROW_TILE``
+    output tiles, at most ``NARROW_BLOCKS_PER_SM`` blocks an SM), or 0 for
+    the 128 x 128 tile a block.  The narrow schedule takes K a whole
+    multiple of 96 (the Swin's widths; bf16, and the TransUNet's, the
+    ViT's and K5's K of 512 and 1280, keep the 128 x 128 tile) where it
+    costs no more by this model: waves of tiles over the SMs, times the
+    tile's width, times the passes over the tensor cores (3; 2 for the
+    narrow schedule when ``a_tf32``).  It counts the 128 x 128 tile's
+    padding at N = 96 .. 576 and the last wave's empty SMs, which decide
+    the measured winner: at b64, the 128 x 128 tile keeps stage 3's
+    projections and stage 4's qkv of an f32 x (a wave more as 96-wide
+    tiles)."""
+    bm, bn = NARROW_TILE
+    if dtype != _F32 or k % bn:
+        return 0
+    m_tiles, slots = -(-m // bm), NARROW_BLOCKS_PER_SM * sm_count
+    narrow = m_tiles * -(-n // bn)
+    narrow_cost = -(-narrow // slots) * bn * (2 if a_tf32 else 3)
+    wide_cost = -(-(m_tiles * -(-n // 128)) // sm_count) * 128 * 3
+    return min(narrow, slots) if narrow_cost <= wide_cost else 0
+
+
 def linear(a: torch.Tensor, w: torch.Tensor,
            bias: Optional[torch.Tensor] = None, gelu: bool = False,
            residual: Optional[torch.Tensor] = None,
-           out_dtype: torch.dtype = _F32) -> torch.Tensor:
+           out_dtype: torch.dtype = _F32, a_tf32: bool = False) -> torch.Tensor:
     """``act(a @ w.T + bias) + residual`` with ``a [M, K]``, ``w [N, K]``
     (torch ``Linear`` layout) both bfloat16 (``tb_linear``) or both float32
     (``wa_linear``, 3xTF32: near-f32 products), f32 accumulation, on the
-    ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh``; bias f32 ``[N]``; residual
-    ``[M, N]`` f32 or bf16; output f32 or bf16."""
+    ``wgmma`` GEMM of ``csrc/gemm_sm90.cuh`` (for float32 in the schedule
+    :func:`linear_plan` picks); bias f32 ``[N]``; residual ``[M, N]`` f32
+    or bf16; output f32 or bf16.  ``a_tf32``: the caller knows every value
+    of the float32 ``a`` to be exactly TF32 (an upcast bf16), so the narrow
+    schedule drops the A_lo pass, which would add exact zeros: the same
+    bits (checked on CPU tensors, where it raises if ``a`` is not)."""
     m, k = a.shape
     n = w.shape[0]
     _check(a, "a", (_F32, _BF16))
@@ -320,7 +372,11 @@ def linear(a: torch.Tensor, w: torch.Tensor,
         _check(residual, "residual", (_F32, _BF16), (m, n))
     if out_dtype not in (_F32, _BF16):
         raise TypeError(f"out_dtype {out_dtype} not float32/bfloat16")
+    if a_tf32 and a.dtype != _F32:
+        raise TypeError("a_tf32 is a claim about a float32 a")
     if not _on_cuda(a, w, bias, residual):
+        if a_tf32 and not is_tf32(a):
+            raise ValueError("a_tf32: a has values below TF32 precision")
         return linear_plain(a, w, bias, gelu, residual, out_dtype)
     # TMA reads the operands: 16-byte aligned rows and base
     vec = 8 if a.dtype == _BF16 else 4
@@ -328,11 +384,18 @@ def linear(a: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{a.dtype} linear needs K % {vec} == 0 and 16-byte "
                          f"aligned operands")
     lib = build()
-    fn = lib.tb_linear if a.dtype == _BF16 else lib.wa_linear
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    _launch(fn, _ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
-            _RES_KIND[None if residual is None else residual.dtype], _ptr(out),
-            int(out_dtype == _BF16), m, n, k, int(gelu), _stream())
+    args = (_ptr(bias), _ptr(residual),
+            _RES_KIND[None if residual is None else residual.dtype],
+            _ptr(out), int(out_dtype == _BF16), m, n, k, int(gelu))
+    if a.dtype == _BF16:
+        _launch(lib.tb_linear, _ptr(a), _ptr(w), *args, _stream())
+        return out
+    grid = linear_plan(m, n, k, a.dtype, _sm_count(a.device), a_tf32)
+    _launch(lib.wa_linear, _ptr(a), _ptr(w), *args, int(a_tf32), grid,
+            _stream())
+    if grid:
+        LAUNCHES["wa_linear_narrow"] += 1
     return out
 
 
@@ -406,6 +469,8 @@ def attention_core(qkv: torch.Tensor, seq: int, num_heads: int, scale: float,
         _launch(lib.wa_attention_core, _ptr(qkv),
                 _ptr(addmask), _ptr(out), b, seq, c, num_heads, nw,
                 float(scale), _stream())
+        if seq <= WINDOW_FWD_MAX_SEQ:
+            LAUNCHES["wa_window_fwd"] += 1
     else:
         raise ValueError("the CUDA attention core takes (pv_bf16, no mask, "
                          "bf16 out) for K1 or (f32 P.V, f32 out) for K4")
@@ -495,10 +560,12 @@ def window_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
 
 def _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, addmask,
                       scale, lin, core):
-    # a bf16 x upcasts exactly; qkv, P and the context stay f32 and the
-    # projection's f32 sums round once to x's dtype (pallas_kernels.py:62-79)
+    # a bf16 x upcasts exactly (so the qkv product may drop its A_lo pass);
+    # qkv, P and the context stay f32 and the projection's f32 sums round
+    # once to x's dtype (pallas_kernels.py:62-79)
     nbw, n, c = x.shape
-    qkv = lin(x.reshape(nbw * n, c).float(), qkv_w, qkv_b)
+    qkv = lin(x.reshape(nbw * n, c).float(), qkv_w, qkv_b,
+              a_tf32=x.dtype == _BF16)
     ctx = core(qkv, n, num_heads, scale, addmask=addmask)
     return lin(ctx, proj_w, proj_b, out_dtype=x.dtype).reshape(nbw, n, c)
 
@@ -678,12 +745,13 @@ def window_attention_bwd_core(qkv: torch.Tensor, do: torch.Tensor,
 
 def _window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
                           scale, lin, core):
-    # a bf16 x (and its bf16 g) upcast exactly; every product is f32
+    # a bf16 x (and its bf16 g) upcast exactly, so (a) and (b) may drop
+    # their A_lo pass; every product is f32
     nbw, n, c = x.shape
     x2 = x.reshape(nbw * n, c).float()
     g2 = g.reshape(nbw * n, c).float().contiguous()
-    qkv = lin(x2, qkv_w, qkv_b)                                    # a
-    do = lin(g2, proj_w.t().contiguous())                          # b
+    qkv = lin(x2, qkv_w, qkv_b, a_tf32=x.dtype == _BF16)           # a
+    do = lin(g2, proj_w.t().contiguous(), a_tf32=g.dtype == _BF16)  # b
     dqkv, o, d_addmask = core(qkv, do, addmask, n, num_heads, scale)  # c
     del qkv, do              # freed here, the peak is the core's call
     d_proj_w = g2.t() @ o                                          # d

@@ -19,14 +19,18 @@ cells and both train steps, at the family's frame shape.  Each cell runs
 ``synchronize``: the wall ms), then 3 profiled ones.  Device ms is the
 kernels' summed time per repetition; idle = 1 - device / unprofiled wall;
 peak MiB is ``torch.cuda.max_memory_allocated`` over the cell.  The columns split the device time into the
-attention forward kernel (``attention_fwd_kernel``: K1's, K4's and K5's
-cores and K3's forward), K3's backward passes (``fa_bwd_*``), the port's
-GEMMs (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``), K2
-(``gfn_*``: forward, backward and its column reduce) and the attention
-kernel of K4's backward (``wa_bwd_*``, with its d_addmask reduce), give
-the device time of K4's whole backward (the kernels under autograd's
-``WindowAttentionFusedBackward`` node), and list the three largest
-kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
+attention forward kernel (``attention_fwd_kernel``: K1's, K4's at N > 32
+and K5's cores and K3's forward), K4's per-window forward core
+(``wa_window_fwd_kernel``, N <= 32: the Swin's), K3's backward passes
+(``fa_bwd_*``), the port's GEMMs on the 128 x 128 schedule
+(``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``) and on the
+narrow one (``linear_narrow_kernel``: ``wa_linear`` at the Swin's
+widths), K2 (``gfn_*``: forward, backward and its column reduce) and the
+attention kernel of K4's backward (``wa_bwd_*``, with its d_addmask
+reduce), give the device time of K4's whole backward (the kernels under
+autograd's ``WindowAttentionFusedBackward`` node) and of the GEMMs in it
+(``k4_bwd_gemm_ms``: its three ``wa_linear`` calls), and list the three
+largest kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -60,7 +64,12 @@ GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "port_gemm": ("linear_wgmma_kernel",),
           "k2": ("gfn_forward_kernel", "gfn_backward_kernel",
                  "gfn_reduce_kernel"),
-          "k4_bwd_core": ("wa_bwd_kernel", "wa_bwd_reduce_kernel")}
+          "k4_bwd_core": ("wa_bwd_kernel", "wa_bwd_reduce_kernel"),
+          "k4_window_core": ("wa_window_fwd_kernel",),
+          "narrow_gemm": ("linear_narrow_kernel",)}
+# the GEMM kernels (both schedules) whose time inside K4's backward is
+# summed apart
+K4_BWD_GEMMS = ("linear_wgmma_kernel", "linear_narrow_kernel")
 
 
 def _model(family: str, dtype: str, attn_train: str, device):
@@ -113,6 +122,17 @@ def _cell_fn(family: str, cell: str, device):
     return (lambda: step(state, x, y, 1e-4)), bs
 
 
+def _kernels_under(ev):
+    """(name, device us) of every kernel launched under the profiler's CPU
+    event ``ev``, its child ops' included (kernels launched through the
+    port's C entry points are attached to the innermost op, here the
+    autograd node)."""
+    for k in ev.kernels:
+        yield k.name, k.duration
+    for child in ev.cpu_children:
+        yield from _kernels_under(child)
+
+
 def profile_cell(family: str, cell: str, device) -> dict:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()
@@ -132,7 +152,7 @@ def profile_cell(family: str, cell: str, device) -> dict:
         torch.cuda.synchronize()
     kernels = {}
     launches = 0
-    k4_bwd_us = 0.0
+    k4_bwd_us = k4_bwd_gemm_us = 0.0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             us = ev.device_time_total if hasattr(ev, "device_time_total") \
@@ -141,6 +161,8 @@ def profile_cell(family: str, cell: str, device) -> dict:
             launches += 1
         elif ev.name == "WindowAttentionFusedBackward":
             k4_bwd_us += ev.device_time_total
+            k4_bwd_gemm_us += sum(us for name, us in _kernels_under(ev)
+                                  if any(k in name for k in K4_BWD_GEMMS))
     device_ms = sum(kernels.values())
     groups = {g: sum(ms for n, ms in kernels.items() if any(k in n for k in keys))
               for g, keys in GROUPS.items()}
@@ -150,6 +172,7 @@ def profile_cell(family: str, cell: str, device) -> dict:
             "idle": 1.0 - device_ms / wall, "launches": launches / reps,
             **{f"{g}_ms": ms for g, ms in groups.items()},
             "k4_bwd_ms": k4_bwd_us / 1e3 / reps,
+            "k4_bwd_gemm_ms": k4_bwd_gemm_us / 1e3 / reps,
             "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
             "top": [(n[:60], ms) for n, ms in top]}
 
