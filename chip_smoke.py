@@ -180,9 +180,20 @@ K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 K5_KERNELS = ("attention_train", "at_attention_core")
 K6_KERNELS = ("label2vec_smooth",)
+K1_KERNELS = ("transformer_block", "tb_layer_norm", "tb_linear",
+              "tb_attention_core")
+# the phase-6 run that saves a checkpoint, which phase 8 serves
+CKPT_RUN = "transunet/f32/xla"
+
+
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's first line also gets the seconds since the
+    script started."""
+    if msg.startswith("phase "):
+        msg = f"{msg}  [{time.perf_counter() - START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -796,7 +807,32 @@ def phase_kernels(checks: Checks, dev, seed: int) -> None:
                    ops=attn(b, heads, s, c // heads),
                    library=lambda: sdpa(xq, s, heads, scale),
                    library_text="SDPA f32 on the same q, k, v")
+    ops = torch.ops.ultrasound_port
+    k1 = (x, list(w), heads, float(scale), float(eps), None, None)
+    k4 = (*args, None, float(scale))
+    log("  dispatch, host us a call (enqueue only, least of 7 rounds of 20): "
+        f"K1 through its op {host_us(lambda: ops.transformer_block.default(*k1)):.1f}, "
+        f"its CUDA implementation called directly "
+        f"{host_us(lambda: K._transformer_block_cuda(*k1)):.1f}; K4 "
+        f"{host_us(lambda: ops.window_attention.default(*k4)):.1f} / "
+        f"{host_us(lambda: K._window_attention_cuda(*k4)):.1f}")
     phase_swin_k4(checks, dev, rand)
+
+
+def host_us(fn, calls: int = 20, rounds: int = 7) -> float:
+    """The least host time of one call of ``fn``, its enqueue alone: the
+    queue is drained before each round of ``calls`` calls and not inside
+    it."""
+    import torch
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return best * 1e6
 
 
 def k4_grads(fn, args, heads, kw, go):
@@ -1088,6 +1124,60 @@ def phase_swin_k4(checks: Checks, dev, rand) -> None:
         torch.cuda.empty_cache()
 
 
+def retime_r4_r9(dev, seed: int) -> dict:
+    """ROADMAP R4 and R9, re-timed as device time a call back to back over
+    input copies read in turn past the 50 MB L2 (as K2's rows are):
+    ``tb_layer_norm`` (bf16 -> bf16) beside ``F.layer_norm`` (its weights
+    in bf16) at K1's [5120, 512] and the ViT's [10240, 1280], and K6 on
+    [32, 256, 80] labels.  Each row's share of its byte bound decides the
+    item by the rule "half of its bound and no slower than the library
+    call" (K6 has no library call)."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 17)
+    log("phase 2 (R4, R9): tb_layer_norm and K6 back to back, past the L2")
+    out = {}
+
+    def copies(t):
+        return [t.clone() for _ in range(max(2, math.ceil(
+            100e6 / (t.numel() * t.element_size()))))]
+
+    for rows, c in ((5120, 512), (10240, 1280)):
+        x = torch.randn(rows, c, generator=g).to(dev, torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        b = (0.1 * torch.randn(c, generator=g)).to(dev)
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        xs = copies(x)
+        ms = back_to_back_ms([lambda xi=xi: K.layer_norm(xi, w, b, 1e-6,
+                                                         torch.bfloat16)
+                              for xi in xs])
+        lib = back_to_back_ms([lambda xi=xi: F.layer_norm(xi, (c,), wb, bb, 1e-6)
+                               for xi in xs])
+        bound = 1e3 * (2 * x.numel() * 2 + 2 * c * 4) / HBM_BYTES_S
+        ok = ms <= 2 * bound and ms <= lib
+        out[f"tb_layer_norm [{rows},{c}]"] = dict(ms=ms, library_ms=lib,
+                                                  bound_ms=bound)
+        log(f"  tb_layer_norm [{rows},{c}] bf16: device {ms:.4f} ms a call, "
+            f"F.layer_norm {lib:.4f} ms; byte bound {bound:.4f} ms, "
+            f"{bound / ms:.0%} of it; rule (>= 50% and <= library): "
+            f"{'close' if ok else 'redesign'}")
+    lab = (torch.rand(TRAIN_BATCH["transunet"], 256, 80, generator=g) * 2.3
+           - 0.1).to(dev)
+    labs = copies(lab)
+    ms = back_to_back_ms([lambda li=li: K.label2vec_smooth(li, 0.1)
+                          for li in labs])
+    bound = 1e3 * (lab.numel() * 4 * 4) / HBM_BYTES_S
+    out["label2vec_smooth [32,256,80]"] = dict(ms=ms, library_ms=None,
+                                               bound_ms=bound)
+    log(f"  label2vec_smooth [32,256,80]: device {ms:.4f} ms a call; byte "
+        f"bound {bound:.4f} ms, {bound / ms:.0%} of it (no library call); "
+        f"rule (>= 50%): {'close' if ms <= 2 * bound else 'redesign'}")
+    return out
+
+
 def phase_vit_kernels(checks: Checks, dev, seed: int) -> None:
     """The kernels at the ViT's shapes (K1, K4), K5 at the ViT and
     TransUNet train shapes, and K6, against their plain versions."""
@@ -1279,7 +1369,7 @@ def phase_gemm(checks: Checks, dev, seed: int) -> None:
 
 
 def seeded_model(family: str, seed: int, dtype: str = "f32",
-                 attn_train_impl: str = "xla"):
+                 attn_train_impl: str = "xla", num_classes: int = 3):
     """The family's default-config model with seeded random flax-layout
     weights (q/k kernels damped), loaded through the bridge; returns
     (model, flat flax dict)."""
@@ -1292,7 +1382,7 @@ def seeded_model(family: str, seed: int, dtype: str = "f32",
     mcfg = dataclasses.replace(
         default_config(family).model,
         compute_dtype="bfloat16" if dtype == "bf16" else "float32",
-        attn_train_impl=attn_train_impl)
+        attn_train_impl=attn_train_impl, num_classes=num_classes)
     model = build_model(mcfg)
     flat = random_flax_variables(model, seed)
     model.load_state_dict(from_flax(flat, model.family), strict=True)
@@ -1827,15 +1917,20 @@ def phase_cli_train(dev, seed: int, tmp: str):
     import numpy as np
     from ultrasound_modeling_tpu_torch import cli
     from ultrasound_modeling_tpu_torch.ops import kernels as K
-    from ultrasound_modeling_tpu_torch.utils.checkpoint import to_flax
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+        Checkpointer, to_flax)
 
     log("phase 6: cli train --synthetic --epochs 1")
     total = {k: 0 for k in K2_KERNELS + K3_KERNELS + K5_KERNELS
              + K4_TRAIN_KERNELS}
     runs = [run[:4] for run in TRAIN_RUNS if run[4]]
     runs += [(family, "f32", "-", []) for family, _ in UNETS]
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    trained = None
     for family, dtype, impl, flags in runs:
         name = f"{family}/{dtype}/{impl}"
+        if name == CKPT_RUN:
+            flags = [*flags, "--ckpt", ckpt_dir]
         argv = ["train", "--model", family, "--synthetic", "--epochs", "1",
                 "--device", "cuda", "--seed", str(seed), "--log-dir",
                 os.path.join(tmp, name.replace("/", "_")), *flags]
@@ -1871,8 +1966,12 @@ def phase_cli_train(dev, seed: int, tmp: str):
             f"{len(init) - len(still)} of {len(init)} leaves moved")
         for k in total:
             total[k] += counts[k]
+        if name == CKPT_RUN:
+            trained = {k: v.detach().cpu().clone()
+                       for k, v in trainer.model.state_dict().items()}
+            log(f"  {name:22s} --ckpt wrote steps {Checkpointer(ckpt_dir).steps()}")
         del trainer
-    return total
+    return total, ckpt_dir, trained
 
 
 def phase_label2vec(dev, seed: int):
@@ -1904,6 +2003,326 @@ def phase_label2vec(dev, seed: int):
     return counts
 
 
+def launched(*names):
+    """The counts of ``names`` since the counters were zeroed, and every
+    other nonzero count."""
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    return {k: v for k, v in K.LAUNCHES.items() if v or k in names}
+
+
+def require_launched(counts, names, what):
+    missing = [k for k in names if not counts.get(k)]
+    require(not missing, f"{what}: kernels not launched {missing}: {counts}")
+
+
+def gate(name, got, want, bf16):
+    """PERF.md section 2's gates: f32 max abs probability diff <= 1e-4; bf16
+    <= 0.05 and argmax agreement >= 0.99.  Returns (diff, agreement)."""
+    diff = (got.float() - want.float()).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    bound = 0.05 if bf16 else 1e-4
+    log(f"  {name}: max abs diff {diff:.3e} (bound {bound}), argmax "
+        f"agreement {agree:.6f}" + (" (bound 0.99)" if bf16 else ""))
+    require(torch_finite(got) and diff <= bound
+            and (not bf16 or agree >= 0.99), f"{name}: diff {diff}, "
+                                              f"agreement {agree}")
+    return diff, agree
+
+
+def torch_finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def frames_per_s(fn, x, reps: int = 5) -> float:
+    import torch
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(x)
+    torch.cuda.synchronize()
+    return reps * x.shape[0] / (time.perf_counter() - t0)
+
+
+def phase_restore_eval(dev, seed: int, tmp: str, ckpt_dir: str, trained):
+    """8a: phase 6's checkpoint restored into a fresh model (every tensor
+    bit-equal to the trained model's), then ``cli eval --ckpt`` as a user
+    starts it (the f32 eval forward: K4)."""
+    import math
+    import torch
+    from ultrasound_modeling_tpu_torch import cli
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log(f"phase 8a: restore the {CKPT_RUN} checkpoint, cli eval --ckpt")
+    cfg = default_config("transunet")
+    model = cli._restore_model(cfg.model, cfg.train, ckpt_dir, dev)
+    got = model.state_dict()
+    require(set(got) == set(trained), "restored keys differ")
+    bad = [k for k, v in trained.items() if not torch.equal(got[k].cpu(), v)]
+    require(not bad, f"restored tensors differ: {bad[:5]}")
+    log(f"  {len(trained)} tensors restored bit-equal")
+    del model, got
+    K.reset_launch_counts()
+    summary = cli.main(["eval", "--synthetic", "--ckpt", ckpt_dir, "--device",
+                        "cuda", "--seed", str(seed), "--log-dir",
+                        os.path.join(tmp, "eval")])
+    counts = launched(*K4_KERNELS)
+    require(summary and all(math.isfinite(v) for v in summary.values()),
+            f"eval summary {summary}")
+    require_launched(counts, K4_KERNELS, "cli eval")
+    log(f"  cli eval: f1 {summary['f1']:.5f}, loss {summary['loss']:.5f}; "
+        f"launches {counts}")
+    return counts
+
+
+def phase_cascade(dev, seed: int, x):
+    """8b: the brain -> bleed cascade (``infer/evaluate.make_cascade``) at
+    batch 64: a 2-class brain TransUNet in f32 (K4) and a 3-class bleed
+    TransUNet in bf16 (K1), seeded weights; the kernel route against the
+    plain route.  Frames whose two masks differ anywhere have different
+    bleed inputs, so the bleed gates hold over the others."""
+    import torch
+    from ultrasound_modeling_tpu_torch.infer import evaluate as ev
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log(f"phase 8b: cascade, brain f32 (2 classes) -> bleed bf16, batch "
+        f"{x.shape[0]}")
+    brain = seeded_model("transunet", seed + 20, num_classes=2)[0].eval().to(dev)
+    bleed = seeded_model("transunet", seed + 21, "bf16")[0].eval().to(dev)
+    cascade = ev.make_cascade(brain, bleed, return_mask=True)
+    out = {}
+    with torch.inference_mode():
+        for route in ("kernel", "plain"):
+            brain.set_attn_impl(route)
+            bleed.set_attn_impl(route)
+            K.reset_launch_counts()
+            probs, mask = cascade(x)
+            torch.cuda.synchronize()
+            counts = launched(*K1_KERNELS, *K4_KERNELS)
+            out[route] = (brain(x), probs, mask, counts)
+            if route == "kernel":
+                require_launched(counts, K1_KERNELS + K4_KERNELS, "cascade")
+                rate = frames_per_s(cascade, x)
+            else:
+                require(not any(counts.values()), f"plain route {counts}")
+    (bk, pk, mk, counts), (bp, pp, mp, _) = out["kernel"], out["plain"]
+    gate("brain probabilities, kernel vs plain", bk, bp, False)
+    agree = (mk == mp).float().mean().item()
+    same = (mk == mp).flatten(1).all(1)
+    log(f"  mask agreement {agree:.7f} (bound 0.999); brain kept "
+        f"{mk.mean().item():.4f} of the pixels; {int(same.sum())} of "
+        f"{len(same)} frames with equal masks")
+    require(agree >= 0.999 and same.any(), f"mask agreement {agree}")
+    gate("bleed probabilities over those frames", pk[same], pp[same], True)
+    log(f"  cascade {rate:.1f} frames/s (kernel route); launches {counts}")
+    del brain, bleed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_int8(dev, model, x):
+    """8c: int8 weight-only serving (``infer/quantize.QuantizedForward``) at
+    batch 64, f32 and bf16: the kernel route against the plain route on the
+    same int8 weights; the resident weight MiB, the argmax agreement with
+    the unquantized forward, frames/s.  Returns the launches and the int8
+    forward (its model, ``model``, moved to the card)."""
+    import torch
+    from ultrasound_modeling_tpu_torch.infer.quantize import QuantizedForward
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log(f"phase 8c: int8 weight-only forward, batch {x.shape[0]}")
+    total = {}
+    host = model.to("cpu")
+    qf = QuantizedForward(host, dev)
+    f32_mib = sum(t.numel() * t.element_size()
+                  for t in host.state_dict().values()) / 2 ** 20
+    log(f"  resident weights: int8 {qf.resident_bytes() / 2 ** 20:.1f} MiB "
+        f"against f32 {f32_mib:.1f} MiB; {qf.fraction:.4f} of the parameter "
+        f"scalars int8")
+    full = host.to(dev)      # the unquantized forward, for the agreement
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        full.compute_dtype = dt
+        out = {}
+        with torch.inference_mode():
+            for route in ("kernel", "plain"):
+                full.set_attn_impl(route)
+                K.reset_launch_counts()
+                out[route] = qf(x)
+                torch.cuda.synchronize()
+                counts = launched()
+                if route == "kernel":
+                    need = K1_KERNELS if name == "bf16" else K4_KERNELS
+                    require_launched(counts, need, f"int8 {name}")
+                    for k, v in counts.items():
+                        total[k] = total.get(k, 0) + v
+                    kernel_counts = counts
+                    rate = frames_per_s(qf, x)
+                    ref = full(x)
+                else:
+                    require(not any(counts.values()), f"plain route {counts}")
+        gate(f"int8 {name}, kernel vs plain", out["kernel"], out["plain"],
+             name == "bf16")
+        agree = (out["kernel"].argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"  int8 {name}: argmax agreement with the unquantized forward "
+            f"{agree:.6f}; max abs diff {(out['kernel'] - ref).abs().max().item():.3e}; "
+            f"{rate:.1f} frames/s; launches {kernel_counts}")
+    full.compute_dtype = torch.float32
+    full.set_attn_impl("kernel")
+    torch.cuda.empty_cache()
+    return total, qf
+
+
+# (compute dtype, batch (None: symbolic), quantize): phase 8d's artifacts,
+# symbolic and static batch, f32 and int8, K4 (f32) and K1 (bf16) each
+EXPORTS = (("f32", None, None), ("f32", BATCH, "int8"), ("bf16", BATCH, None),
+           ("bf16", None, "int8"))
+
+
+def phase_export(dev, model, qf, x, tmp: str):
+    """8d: ``infer/export.py`` artifacts of the full-width TransUNet, saved,
+    loaded and run at b1 and b64 (static: b64) against the eager forward;
+    the counters zeroed before each loaded artifact's call and read after:
+    K4 (f32) or K1 (bf16) launched from the artifact.  ``qf`` is the int8
+    forward of ``model`` (phase 8c's), the int8 artifacts' eager
+    reference."""
+    import torch
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.infer import export as ex
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log("phase 8d: torch.export artifacts, saved, loaded and run")
+    total = {}
+    mcfg = default_config("transunet").model
+    for dtype, batch, q in EXPORTS:
+        bf16 = dtype == "bf16"
+        model.compute_dtype = torch.bfloat16 if bf16 else torch.float32
+        t0 = time.perf_counter()
+        exported = ex.export_forward(mcfg, model, x.shape[1:], batch=batch,
+                                     quantize=q)
+        path = os.path.join(tmp, "artifact.pt2")
+        ex.save_exported(exported, path)
+        fn, shape, pinned = ex.load_exported_meta(path, dev)
+        secs = time.perf_counter() - t0
+        require(shape == tuple(x.shape[1:]) and pinned == batch,
+                f"artifact meta {shape} {pinned}")
+        eager = qf if q else model
+        name = f"{dtype}{' int8' if q else ''} batch {batch or 'symbolic'}"
+        log(f"  {name}: exported, saved and loaded in {secs:.1f} s, "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB")
+        for b in ((1, x.shape[0]) if batch is None else (batch,)):
+            with torch.inference_mode():
+                K.reset_launch_counts()
+                got = fn(x[:b])
+                torch.cuda.synchronize()
+                counts = launched()
+                want = eager(x[:b])
+            require_launched(counts, K1_KERNELS if bf16 else K4_KERNELS,
+                             f"artifact {name}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            diff = (got - want).abs().max().item()
+            # the artifact launches the eager forward's kernels on the same
+            # inputs: a bf16 one matches it to rounding noise, which a
+            # dropped or stale step would exceed
+            bound = 1e-6 if bf16 else 1e-5
+            rates = ""
+            if b == x.shape[0]:
+                with torch.inference_mode():
+                    rates = (f"; {frames_per_s(fn, x):.1f} frames/s, the eager "
+                             f"forward {frames_per_s(eager, x):.1f}")
+            log(f"    b{b}: max abs diff to the eager forward {diff:.3e} "
+                f"(bound {bound}); launches from the artifact {counts}{rates}")
+            require(torch_finite(got) and got.shape == (b, *x.shape[1:3], 3)
+                    and diff <= bound, f"artifact {name} b{b}: diff {diff}")
+        os.remove(path)
+        del exported, fn, eager
+    model.compute_dtype = torch.float32
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_int8(dev, ckpt_dir: str, x):
+    """8e: ``cli serve --ckpt D --quantize int8`` as a user starts it,
+    answering two requests (1 and 3 frames) against the int8 forward of the
+    same checkpoint; the counters zeroed before the server starts and read
+    after it stops."""
+    import socket
+    import numpy as np
+    import torch
+    from ultrasound_modeling_tpu_torch import cli
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.infer.server import InferenceServer
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+
+    log(f"phase 8e: cli serve --ckpt (the {CKPT_RUN} run) --quantize int8")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    servers, errors, results = [], [], {}
+    serve_forever = InferenceServer.serve_forever
+
+    def recorded(self):
+        servers.append(self)
+        serve_forever(self)
+
+    def run():
+        try:
+            cli.main(["serve", "--ckpt", ckpt_dir, "--quantize", "int8",
+                      "--device", "cuda", "--port", str(port)])
+        except BaseException as e:  # surfaced by the checks below
+            errors.append(repr(e))
+
+    InferenceServer.serve_forever = recorded
+    K.reset_launch_counts()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{port}"
+    frames = x[:4].cpu().numpy()
+    try:
+        deadline = time.time() + 300
+        while not servers and not errors and time.time() < deadline:
+            time.sleep(0.2)
+        require(servers and not errors, f"serve did not start: {errors}")
+
+        def post(key, batch):
+            try:
+                buf = io.BytesIO()
+                np.save(buf, batch)
+                req = urllib.request.Request(
+                    f"{url}/predict", data=buf.getvalue(),
+                    headers={"Content-Type": "application/octet-stream"})
+                results[key] = np.load(io.BytesIO(
+                    urllib.request.urlopen(req, timeout=300).read()))
+            except Exception as e:  # surfaced by the check below
+                errors.append(f"{key}: {e!r}")
+
+        posts = [threading.Thread(target=post, args=a)
+                 for a in (("one", frames[:1]), ("three", frames[1:4]))]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join()
+    finally:
+        InferenceServer.serve_forever = serve_forever
+        for server in servers:
+            server.shutdown()
+        th.join(60)
+    require(not errors and not th.is_alive(), f"serve: {errors}")
+    counts = launched(*K4_KERNELS)
+    require_launched(counts, K4_KERNELS, "serve --quantize int8")
+    cfg = default_config("transunet")
+    want = cli._make_forward(cfg.model, cfg.train, ckpt_dir, dev, "int8")(
+        x[:4]).cpu().numpy()
+    got = np.concatenate([results["one"], results["three"]])
+    diff = float(np.abs(got - want).max())
+    log(f"  2 requests / 4 frames answered; max abs diff to the int8 forward "
+        f"{diff:.3e} (bound 1e-4); launches {counts}")
+    require(np.isfinite(got).all() and diff <= 1e-4, f"served diff {diff}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1915,6 +2334,7 @@ def main(argv=None) -> int:
               f"from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device visible to torch; this check "
@@ -1955,6 +2375,7 @@ def main(argv=None) -> int:
         k2_report(K)
         phase_tensor_cores(K)
         phase_kernels(checks, dev, args.seed)
+        retime_r4_r9(dev, args.seed)
         phase_train_kernels(checks, dev, args.seed)
         phase_vit_kernels(checks, dev, args.seed)
         phase_gemm(checks, dev, args.seed)
@@ -1973,8 +2394,20 @@ def main(argv=None) -> int:
             phase_train_step(dev, args.seed)
             for family, letter in UNETS:
                 phase_unet_train(dev, args.seed, family, "5b" + letter)
-            add(phase_cli_train(dev, args.seed, tmp))
-        add(phase_label2vec(dev, args.seed))
+            totals, ckpt_dir, trained = phase_cli_train(dev, args.seed, tmp)
+            add(totals)
+            add(phase_label2vec(dev, args.seed))
+            add(phase_restore_eval(dev, args.seed, tmp, ckpt_dir, trained))
+            x = torch.from_numpy(np.random.default_rng(args.seed + 30)
+                                 .standard_normal((BATCH, 256, 80, 10))
+                                 .astype(np.float32)).to(dev)
+            add(phase_cascade(dev, args.seed, x))
+            model = seeded_model("transunet", args.seed)[0].eval()
+            counts8c, qf = phase_int8(dev, model, x)
+            add(counts8c)
+            add(phase_export(dev, model, qf, x, tmp))
+            del model, qf
+            add(phase_serve_int8(dev, ckpt_dir, x))
         require(not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules),
                 "jax or flax was imported")
     except SmokeFailure as e:

@@ -16,21 +16,29 @@ Layout (mirrors the JAX package):
   ops/window_attn.py    — relative-position index, shifted mask, plain
                           window attention
   ops/kernels.py        — hand-written CUDA kernels (csrc/) + their plain
-                          PyTorch versions and launch counters
+                          PyTorch versions and launch counters; K1 and
+                          K4's forward as custom ops (torch.export)
   data/                 — label2vec, batched augmentation, the Dataset
                           cursor, synthetic data
   train/                — cce_smooth, metrics, clip + Adam, train / eval
                           steps, Trainer
-  utils/checkpoint.py   — flax-npz <-> torch state_dict bridge
+  utils/checkpoint.py   — flax-npz <-> torch state_dict bridge,
+                          Checkpointer (save / restore / resume)
   utils/logging.py      — MetricLogger (JSONL + TensorBoard scalars)
   infer/server.py       — the micro-batching HTTP InferenceServer
-  config.py             — the config dataclasses and default_config
+  infer/evaluate.py     — batched inference, the brain->bleed cascade,
+                          class counts, the test-archive loader
+  infer/quantize.py     — int8 weight-only serving (flax-layout scales)
+  infer/export.py       — torch.export artifacts of the eval forward
+  infer/render.py       — the polar panels (matplotlib, host only)
+  config.py             — the config dataclasses, default_config, from_toml
   device.py             — resolve_device: the card unless the CPU is asked
-  cli.py                — ``train``, ``serve``
+  cli.py                — ``train``, ``eval``, ``infer``, ``export``,
+                          ``serve``
 
 The port imports nothing of the JAX package: ``config.py``,
-``infer/server.py`` and ``utils/logging.py`` are its own copies of the
-framework-free modules there (``tests/test_torch_port_isolation.py``
+``infer/server.py``, ``infer/render.py`` and ``utils/logging.py`` are its
+own copies of the framework-free modules there (``tests/test_torch_port_isolation.py``
 enforces the rule and holds the copies against the originals).
 """
 

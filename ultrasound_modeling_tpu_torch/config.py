@@ -1,7 +1,7 @@
-"""Typed configuration tree of the port: the dataclasses and
-``default_config`` of ``ultrasound_modeling_tpu/config.py``, copied as they
-are (stdlib only), so that the port imports nothing of the JAX package.
-``tests/test_torch_port_isolation.py`` holds every family's
+"""Typed configuration tree of the port: the dataclasses,
+``default_config`` and ``from_toml`` of ``ultrasound_modeling_tpu/config.py``,
+copied as they are (stdlib only), so that the port imports nothing of the
+JAX package.  ``tests/test_torch_port_isolation.py`` holds every family's
 ``default_config`` equal to the original, field by field.
 
 The reference keeps its configuration in a dotenv file exposing four path
@@ -197,6 +197,31 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def from_toml(path: str) -> Config:
+    """Load a config tree from TOML: top-level tables ``paths/data/model/
+    train/mesh``; missing keys keep their defaults (the reference's dotenv
+    covers only the four paths — reference: config.py:8-14)."""
+    import tomllib
+    with open(path, "rb") as fh:
+        raw = tomllib.load(fh)
+    # Seed the base from the named family's defaults so a TOML that only
+    # says `[model] name="mobileunet"` still gets that family's geometry /
+    # loss / optimizer (in_channels 15, 256x64, pixelcnn loss, ...); the
+    # TOML keys then override on top.
+    family = raw.get("model", {}).get("name", "transunet")
+    defaults = default_config(family)
+    sections = {}
+    for name, base in (("paths", defaults.paths), ("data", defaults.data),
+                       ("model", defaults.model), ("train", defaults.train),
+                       ("mesh", defaults.mesh)):
+        if name in raw:
+            clean = {k: tuple(v) if isinstance(v, list) else v
+                     for k, v in raw[name].items()}
+            base = dataclasses.replace(base, **clean)
+        sections[name] = base
+    return Config(**sections)
 
 
 def default_config(model_name: str = "transunet", **overrides) -> Config:

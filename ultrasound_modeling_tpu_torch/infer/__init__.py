@@ -1,1 +1,2 @@
-"""HTTP serving (the micro-batching InferenceServer)."""
+"""Serving: the HTTP InferenceServer, evaluation and the brain->bleed
+cascade, int8 weight-only serving, export, rendering."""

@@ -25,7 +25,8 @@ dtype its sums promote to.  ``attn_impl`` picks the attention:
 
 * ``'kernel'`` — K4 (``ops.kernels.window_attention_fused``: the CUDA
   forward, the recompute backward with its attention part in one CUDA
-  kernel), the JAX ``'pallas'`` route.
+  kernel), the JAX ``'pallas'`` route; with gradients off (serving, the
+  exported program) its forward op ``ops.kernels.window_attention`` alone.
   Its output is in its input's dtype, so under bfloat16 the residual
   stream stays bfloat16;
 * ``'plain'`` — K4's plain version (``window_attention_plain``), the same
@@ -134,9 +135,14 @@ class WindowAttention(nn.Module):
             return F.linear(ctx, self.proj.weight, self.proj.bias)
         kernel = self.attn_impl == "kernel" and not (
             self.training and self.train_route == "plain")
-        fn = (kernels.window_attention_fused if kernel
-              else kernels.window_attention_plain)
-        return fn(x, self.qkv.weight, self.qkv.bias,
+        if kernel and not torch.is_grad_enabled():
+            # no gradient to take: K4's forward op itself, which
+            # torch.export keeps as a node (infer/export.py)
+            fn = kernels.window_attention
+        else:
+            fn = (kernels.window_attention_fused if kernel
+                  else kernels.window_attention_plain)
+        return fn(x.contiguous(), self.qkv.weight, self.qkv.bias,
                   self.proj.weight, self.proj.bias, self.num_heads,
                   bias_table=table, rel_index=self.rel_index, mask=mask)
 

@@ -63,7 +63,10 @@ with PyTorch ops — the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 ``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4/K5
 call; ``LAYOUT_COPIES`` counts the inputs K2 and K3 had to copy into the
-contiguous layout their kernels read.
+contiguous layout their kernels read.  K1 and K4's forward are custom ops
+(``ultrasound_port::transformer_block``, ``::window_attention``), which
+``torch.export`` keeps as nodes of an exported program
+(``infer/export.py``).
 
 The kernels build on first use, one ``nvcc`` per source, all started
 together, into ``_build/`` (``build()``); nothing here touches CUDA at
@@ -524,23 +527,103 @@ def transformer_block_plain(x: torch.Tensor, w: BlockWeights, num_heads: int,
                   linear_plain, attention_core_plain)
 
 
+def _final_ln(w: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    return None if w is None else (w, b)
+
+
+class _NoGradient(torch.autograd.Function):
+    """A forward-only op's output, tied to its inputs that require grad, so
+    that a backward through it raises: the ops register no gradient, and
+    autograd's fallback for such an op gives wrong gradients without an
+    error."""
+
+    @staticmethod
+    def forward(ctx, name, out, *inputs):
+        ctx.name = name
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(f"{ctx.name} is a forward op with no gradient; "
+                           f"train through window_attention_fused or the "
+                           f"train attention routes")
+
+
+def _forward_op(name: str, *args):
+    """``torch.ops.ultrasound_port.<name>`` on ``args``; where a gradient
+    is being taken, its result raises on a backward (:class:`_NoGradient`)."""
+    op = getattr(torch.ops.ultrasound_port, name).default
+    if not torch.is_grad_enabled():
+        return op(*args)
+    tensors = [t for a in args for t in (a if isinstance(a, list) else [a])
+               if isinstance(t, torch.Tensor) and t.requires_grad]
+    if not tensors:
+        return op(*args)
+    with torch.no_grad():
+        out = op(*args)
+    return _NoGradient.apply(name, out, *tensors)
+
+
+# K1 and K4's forward are ops of the ``ultrasound_port`` namespace
+# (torch.library), so that torch.export traces each call as one node and an
+# exported program launches the kernels as the eager forward does: the CPU
+# implementation is the plain version, the CUDA one the kernels (it counts
+# its launches, also when an exported program calls it), and the fake one
+# gives shape and dtype only.  They are defined by schema and called as
+# ``torch.ops.ultrasound_port.*.default``, which costs the dispatcher alone
+# (``torch.library.custom_op`` adds a Python wrapper to every call).  Their
+# arguments are tensors, lists of tensors and scalars: BlockWeights travels
+# as a list.
+_OPS = torch.library.Library("ultrasound_port", "DEF")
+_OPS.define("transformer_block(Tensor x, Tensor[] weights, int num_heads, "
+            "float scale, float eps, Tensor? final_ln_w, Tensor? final_ln_b) "
+            "-> Tensor")
+_OPS.define("window_attention(Tensor x, Tensor qkv_w, Tensor? qkv_b, "
+            "Tensor proj_w, Tensor? proj_b, int num_heads, Tensor? addmask, "
+            "float scale) -> Tensor")
+
+
+def _transformer_block_cpu(x, weights, num_heads, scale, eps, final_ln_w,
+                           final_ln_b):
+    return transformer_block_plain(x, BlockWeights(*weights), num_heads, scale,
+                                   eps, _final_ln(final_ln_w, final_ln_b))
+
+
+def _transformer_block_cuda(x, weights, num_heads, scale, eps, final_ln_w,
+                            final_ln_b):
+    LAUNCHES["transformer_block"] += 1
+    return _block(x, BlockWeights(*weights), num_heads, scale, eps,
+                  _final_ln(final_ln_w, final_ln_b), layer_norm, linear,
+                  attention_core)
+
+
+@torch.library.register_fake("ultrasound_port::transformer_block", lib=_OPS)
+def _transformer_block_fake(x, weights, num_heads, scale, eps, final_ln_w,
+                            final_ln_b):
+    return torch.empty_like(x)
+
+
+_OPS.impl("transformer_block", _transformer_block_cpu, "CPU")
+_OPS.impl("transformer_block", _transformer_block_cuda, "CUDA")
+
+
 def transformer_block(x: torch.Tensor, w: BlockWeights, num_heads: int,
                       scale: float, eps: float,
                       final_ln: Optional[Tuple[torch.Tensor, torch.Tensor]]
                       = None) -> torch.Tensor:
     """K1: one bf16 pre-LN block ``x [B, S, C]`` bf16 -> bf16, with the
-    stack's trailing LayerNorm folded in when ``final_ln = (w, b)``."""
+    stack's trailing LayerNorm folded in when ``final_ln = (w, b)``; the
+    op ``ultrasound_port::transformer_block``."""
     b, s, c = x.shape
     _check(x, "x", (_BF16,))
     _check_attention_shape(b * s, s, 3 * c, num_heads, None)
     for name, t in w._asdict().items():
         want = _BF16 if name.endswith("_w") and not name.startswith("ln") else _F32
         _check(t, name, (want,))
-    if not _on_cuda(x, *w):
-        return transformer_block_plain(x, w, num_heads, scale, eps, final_ln)
-    LAUNCHES["transformer_block"] += 1
-    return _block(x, w, num_heads, scale, eps, final_ln, layer_norm, linear,
-                  attention_core)
+    fw, fb = final_ln if final_ln is not None else (None, None)
+    _on_cuda(x, *w, fw, fb)            # raises on a mix of devices
+    return _forward_op("transformer_block", x, list(w), num_heads,
+                       float(scale), float(eps), fw, fb)
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +660,8 @@ def window_attention_fwd(x: torch.Tensor, qkv_w: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """K4 forward with its additive matrix given (``window_attn.
     additive_matrix``: ``[nW, heads, N, N]`` float32, window ``b`` adds
-    ``addmask[b % nW]``); arguments and result as :func:`window_attention`."""
+    ``addmask[b % nW]``); arguments and result as :func:`window_attention`;
+    the op ``ultrasound_port::window_attention``."""
     nbw, n, c = x.shape
     _check(x, "x", (_F32, _BF16))
     _check(qkv_w, "qkv_w", (_F32,), (3 * c, c))
@@ -587,13 +671,32 @@ def window_attention_fwd(x: torch.Tensor, qkv_w: torch.Tensor,
             _check(b, name, (_F32,), (width,))
     _check_attention_shape(nbw * n, n, 3 * c, num_heads, addmask)
     scale = float((c // num_heads) ** -0.5 if scale is None else scale)
-    if not _on_cuda(x, qkv_w, qkv_b, proj_w, proj_b, addmask):
-        return _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
-                                 addmask, scale, linear_plain,
-                                 attention_core_plain)
+    _on_cuda(x, qkv_w, qkv_b, proj_w, proj_b, addmask)  # raises on a mix
+    return _forward_op("window_attention", x, qkv_w, qkv_b, proj_w, proj_b,
+                       num_heads, addmask, scale)
+
+
+def _window_attention_cpu(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                          addmask, scale):
+    return _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                             addmask, scale, linear_plain, attention_core_plain)
+
+
+def _window_attention_cuda(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                           addmask, scale):
     LAUNCHES["window_attention"] += 1
     return _window_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                              addmask, scale, linear, attention_core)
+
+
+@torch.library.register_fake("ultrasound_port::window_attention", lib=_OPS)
+def _window_attention_fake(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
+                           addmask, scale):
+    return torch.empty_like(x)
+
+
+_OPS.impl("window_attention", _window_attention_cpu, "CPU")
+_OPS.impl("window_attention", _window_attention_cuda, "CUDA")
 
 
 def window_attention(x: torch.Tensor, qkv_w: torch.Tensor,

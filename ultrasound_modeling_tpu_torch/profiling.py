@@ -1,22 +1,26 @@
 """Where the device time goes: ``torch.profiler`` over the port's serving
 forward and train step, one line per cell, on the card.
 
-    python -m ultrasound_modeling_tpu_torch.profiling [FAMILY ...]
+    python -m ultrasound_modeling_tpu_torch.profiling [FAMILY | FAMILY:CELL ...]
 
-(the cells of the families named, or of all five).  A cell is a family
+(the cells of the families named and the cells named, or all of them).  A cell is a family
 and ``serve-{f32,bf16}`` (the kernel path's forward at batch 64) or
 ``train-{f32,bf16}[-{composed,flash,pallas,k4}]`` (the whole train step as
 the family's Trainer builds it (its loss and optimizer rule), kernel
 route, augmentation on, at the family's batch: ViT 8, TransUNet 32, Swin
 32, ResNeStUNet 64, MobileUNet 256); a trailing ``-plain`` takes the plain
-train route instead.  The ViT runs every cell, the TransUNet its f32
-composed and bf16 flash train steps, the Swin both serving cells and its
+train route instead.  The ViT runs every cell, the TransUNet both
+serving cells and its f32 composed and bf16 flash train steps, the Swin both serving cells and its
 f32 and bf16 train steps (``k4``: it trains on K4 and its backward, drop
 path on), the f32 one also on the plain route, the ResNeStUNet and the
 MobileUNet (no kernel on their paths; dropout on in train) both serving
-cells and both train steps, at the family's frame shape.  Each cell runs
+cells and both train steps, at the family's frame shape; the TransUNet's
+``serve-bf16-exported[-static]`` cells serve its bf16 forward from a
+loaded ``torch.export`` artifact (symbolic batch, or pinned at 64).  Each cell runs
 3 warm-ups, then 5 unprofiled repetitions (host clock around
-``synchronize``: the wall ms), then 3 profiled ones.  Device ms is the
+``synchronize``: the wall ms; the least host time one of them took to
+return, its enqueue where the queue does not fill: host min ms), then 3
+profiled ones.  Device ms is the
 kernels' summed time per repetition; idle = 1 - device / unprofiled wall;
 peak MiB is ``torch.cuda.max_memory_allocated`` over the cell.  The columns split the device time into the
 attention forward kernel (``attention_fwd_kernel``: K1's, K4's at N > 32
@@ -52,6 +56,9 @@ CELLS = (("vit", "serve-f32"), ("vit", "serve-bf16"),
          ("vit", "train-f32-composed"), ("vit", "train-f32-flash"),
          ("vit", "train-f32-pallas"), ("vit", "train-bf16-flash"),
          ("vit", "train-bf16-pallas"),
+         ("transunet", "serve-f32"), ("transunet", "serve-bf16"),
+         ("transunet", "serve-bf16-exported"),
+         ("transunet", "serve-bf16-exported-static"),
          ("transunet", "train-f32-composed"), ("transunet", "train-bf16-flash"),
          ("swin", "serve-f32"), ("swin", "serve-bf16"), ("swin", "train-f32-k4"),
          ("swin", "train-f32-k4-plain"), ("swin", "train-bf16-k4"),
@@ -85,6 +92,19 @@ def _model(family: str, dtype: str, attn_train: str, device):
     return model.to(device)
 
 
+def _loaded_artifact(mcfg, model, frame, batch, device):
+    """``model``'s forward exported (``infer/export.py``), saved and loaded
+    back, as ``serve --exported`` runs it."""
+    import os
+    import tempfile
+    from ultrasound_modeling_tpu_torch.infer import export as ex
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "artifact.pt2")
+        ex.save_exported(ex.export_forward(mcfg, model, frame, batch=batch),
+                         path)
+        return ex.load_exported(path, device)
+
+
 def _cell_fn(family: str, cell: str, device):
     """(one repetition of the cell, frames a repetition)."""
     from ultrasound_modeling_tpu_torch.data import synthetic
@@ -100,10 +120,14 @@ def _cell_fn(family: str, cell: str, device):
             model.set_attn_impl("kernel")
         x = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
             (SERVE_BATCH, *frame)).astype(np.float32)).to(device)
+        fwd = model
+        if parts[2:3] == ["exported"]:
+            fwd = _loaded_artifact(cfg.model, model, frame, SERVE_BATCH
+                                   if parts[3:] == ["static"] else None, device)
 
         def serve():
             with torch.inference_mode():
-                model(x)
+                fwd(x)
         return serve, SERVE_BATCH
     dtype = parts[1]
     impl = {"composed": "xla"}.get(parts[2], parts[2]) if parts[2:] else "xla"
@@ -141,8 +165,11 @@ def profile_cell(family: str, cell: str, device) -> dict:
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    enqueue = []
     for _ in range(5):
+        t1 = time.perf_counter()
         fn()
+        enqueue.append(time.perf_counter() - t1)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
     reps = 3
@@ -168,6 +195,7 @@ def profile_cell(family: str, cell: str, device) -> dict:
               for g, keys in GROUPS.items()}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
     return {"family": family, "cell": cell, "wall_ms": wall,
+            "host_min_ms": min(enqueue) * 1e3,
             "frames_per_s": 1e3 * frames / wall, "device_ms": device_ms,
             "idle": 1.0 - device_ms / wall, "launches": launches / reps,
             **{f"{g}_ms": ms for g, ms in groups.items()},
@@ -187,9 +215,9 @@ def main():
     print(smi.stdout.strip() or f"{torch.cuda.get_device_name(0)}, power limit "
           f"not read (nvidia-smi: rc {smi.returncode} {smi.stderr.strip()})",
           flush=True)
-    families = sys.argv[1:] or sorted({f for f, _ in CELLS})
+    wanted = set(sys.argv[1:])
     for family, cell in CELLS:
-        if family not in families:
+        if wanted and not wanted & {family, f"{family}:{cell}"}:
             continue
         row = profile_cell(family, cell, device)
         print(json.dumps(row), flush=True)

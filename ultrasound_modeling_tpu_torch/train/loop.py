@@ -10,7 +10,14 @@ drivers' semantics:
 * a loss equal to the previous epoch's is flagged ``loss_stagnant``
   (``MainNumpy.py:76-79``);
 * scalars go through ``utils/logging.MetricLogger``, the port's copy of
-  the JAX package's.
+  the JAX package's;
+* with a ``utils.checkpoint.Checkpointer``, a save after every epoch that
+  crosses a multiple of ``checkpoint_every_steps`` and one at the end of
+  ``fit`` (the JAX condition, at epoch grain); :meth:`Trainer.restore`
+  takes the run up where it stopped.  The checkpoint also holds the
+  plateau scale and the last evaluation's F1, which the JAX one does not
+  (a JAX resume restarts the plateau rule): here N/2 + N/2 epochs with a
+  restore between them equal N.
 
 The JAX Trainer's per-loss and per-family rules (``loss_for``,
 ``optimizer_for``): the smoothing reaches ``cce_smooth`` as
@@ -22,15 +29,14 @@ the config sets one (the ViT).
 
 Left out (ROADMAP Queue 1): decoupled weight decay and the bf16 Adam first
 moment (a config asking for either raises), meshes (data, tensor and
-pipeline parallel), ``scan_epochs``, out-of-core datasets, checkpoint and
-resume, image panels.
+pipeline parallel), ``scan_epochs``, out-of-core datasets, image panels.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -40,6 +46,7 @@ from ultrasound_modeling_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ultrasound_modeling_tpu_torch.models.registry import build_model
 from ultrasound_modeling_tpu_torch.train import losses, metrics, optim
 from ultrasound_modeling_tpu_torch.train import step as step_mod
+from ultrasound_modeling_tpu_torch.utils.checkpoint import Checkpointer
 from ultrasound_modeling_tpu_torch.utils.logging import MetricLogger
 
 
@@ -73,7 +80,8 @@ def optimizer_for(model_name: str, tc: TrainConfig
 
 class Trainer:
     def __init__(self, cfg: Config, dataset: Dataset, device=DEFAULT_DEVICE,
-                 logger: Optional[MetricLogger] = None):
+                 logger: Optional[MetricLogger] = None,
+                 checkpointer: Optional[Checkpointer] = None):
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -82,7 +90,8 @@ class Trainer:
             raise NotImplementedError(
                 f"weight_decay={tc.weight_decay} / adam_mu_dtype="
                 f"{tc.adam_mu_dtype!r} are not ported yet (every family "
-                f"trains with 0 / None by default): ROADMAP Queue 1 item 3")
+                f"trains with 0 / None by default): ROADMAP Queue 1 item 3, "
+                f"'Config knobs the port refuses'")
         self.model = build_model(cfg.model)
         self.logger = logger or MetricLogger()
         self.loss_fn = loss_for(tc)
@@ -92,6 +101,8 @@ class Trainer:
         self.schedule = optim.piecewise_constant(
             tc.learning_rate, tc.lr_boundaries, tc.lr_values)
         self.plateau_scale = 1.0
+        self.f1_prev = 0.0          # the last evaluation's F1
+        self.checkpointer = checkpointer
         self.train_step = step_mod.make_train_step(
             self.model, self.loss_fn, num_classes=cfg.model.num_classes,
             augment=cfg.data.augment, flip=cfg.data.aug_flip,
@@ -100,6 +111,34 @@ class Trainer:
             self.model, self.loss_fn, num_classes=cfg.model.num_classes)
         self.iteration = 0
         self.last_epoch: Dict[str, float] = {}
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the model (params and BatchNorm
+        statistics), the optimizer's moments and count, the step, both
+        generators' states, the plateau scale and the last F1."""
+        st = self.state
+        return {"model": st.model.state_dict(), "opt": st.opt.state_dict(),
+                "step": st.step, "gen": st.gen.get_state(),
+                "drop_gen": (None if st.drop_gen is None
+                             else st.drop_gen.get_state()),
+                "plateau_scale": self.plateau_scale, "f1_prev": self.f1_prev}
+
+    def save(self) -> None:
+        self.checkpointer.save(self.checkpoint_state(), self.iteration)
+
+    def restore(self, checkpointer: Checkpointer,
+                step: Optional[int] = None) -> None:
+        """Take up a run from ``checkpointer``'s checkpoint (the latest by
+        default): the state, the iteration, the plateau scale and F1."""
+        ck = checkpointer.restore(self.checkpoint_state(), step)
+        st = self.state
+        st.model.load_state_dict(ck["model"], strict=True)
+        st.opt.load_state_dict(ck["opt"])
+        st.gen.set_state(ck["gen"])
+        if st.drop_gen is not None:
+            st.drop_gen.set_state(ck["drop_gen"])
+        st.step = self.iteration = ck["step"]
+        self.plateau_scale, self.f1_prev = ck["plateau_scale"], ck["f1_prev"]
 
     def current_lr(self) -> float:
         return self.schedule(self.iteration) * self.plateau_scale
@@ -144,7 +183,6 @@ class Trainer:
         tc = self.cfg.train
         epochs = epochs or tc.epochs
         prev_loss = None
-        f1_prev = 0.0
         summary: Dict[str, float] = {}
         for epoch in range(1, epochs + 1):
             if self.current_lr() < tc.lr_floor:
@@ -155,7 +193,12 @@ class Trainer:
             prev_loss = stats["loss"]
             if epoch % tc.eval_every_epochs == 0:
                 summary = self.evaluate(epoch)
-                if summary["f1"] < f1_prev:
+                if summary["f1"] < self.f1_prev:
                     self.plateau_scale *= tc.plateau_decay
-                f1_prev = summary["f1"]
+                self.f1_prev = summary["f1"]
+            if (self.checkpointer is not None and self.iteration
+                    % tc.checkpoint_every_steps < stats["iters"]):
+                self.save()
+        if self.checkpointer is not None:
+            self.save()
         return summary

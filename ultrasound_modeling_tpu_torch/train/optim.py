@@ -93,6 +93,19 @@ class Adam:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> Dict[str, object]:
+        """The optimizer state (optax's ``ScaleByAdamState``): both moments
+        and the step count."""
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's moments."""
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            for m, t in zip(mine, theirs, strict=True):
+                m.copy_(t)
+        self.count = int(state["count"])
+
 
 def dual_rate_adam(model: torch.nn.Module, encoder_ratio: float = 0.1,
                    b1: float = 0.5, encoder_prefix: str = "encoder") -> Adam:

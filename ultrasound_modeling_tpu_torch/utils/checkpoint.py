@@ -41,13 +41,19 @@ mechanical.  Per leaf:
   ``models/resnest.py``, biases) keeps its name and shape.
 
 Every step is a permutation, flip or split, so ``to_flax(from_flax(p)) == p``
-exactly.
+exactly.  :func:`bridge_leaf` applies it to one leaf, a tensor on any
+device: :func:`from_flax` on the host, the int8 forward on the card
+(``infer/quantize.py``).
+
+``Checkpointer`` saves and restores a training state (port of the JAX
+package's ``Checkpointer``, one ``torch.save`` file per save).
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,26 +84,63 @@ def _transposed(family: str) -> Callable[[str], object]:
     return re.compile(pattern).fullmatch if pattern else (lambda name: None)
 
 
-def _leaf_from_flax(parts, a: np.ndarray, transposed):
-    """(torch path parts, torch array) for one flax leaf."""
+def _flax_layout(parts, ndim: int, transposed):
+    """(torch path parts, layout) of one flax leaf of ``ndim`` dimensions;
+    the layout names the permutation of :data:`LAYOUTS` that takes the
+    flax array to the torch one."""
     name = parts[-1]
     m = _ATTN_LEAF.match(name)
     if len(parts) >= 2 and parts[-2] == "attn" and m:
         proj, kind = m.groups()
         if kind == "kernel":
-            return parts[:-1] + [proj, "weight"], a.T
-        return parts[:-1] + [proj, "bias"], a
+            return parts[:-1] + [proj, "weight"], "T"
+        return parts[:-1] + [proj, "bias"], "same"
     if name == "kernel":
         if len(parts) >= 2 and transposed(parts[-2]):
-            return parts[:-1] + ["weight"], a[::-1, ::-1].transpose(2, 3, 0, 1)
-        if a.ndim == 4:
-            return parts[:-1] + ["weight"], a.transpose(3, 2, 0, 1)
-        if a.ndim == 2:
-            return parts[:-1] + ["weight"], a.T
-        raise ValueError(f"unexpected kernel rank {a.ndim} at {parts}")
+            return parts[:-1] + ["weight"], "tconv"
+        if ndim == 4:
+            return parts[:-1] + ["weight"], "conv"
+        if ndim == 2:
+            return parts[:-1] + ["weight"], "T"
+        raise ValueError(f"unexpected kernel rank {ndim} at {parts}")
     if name == "scale":
-        return parts[:-1] + ["weight"], a
-    return parts, a
+        return parts[:-1] + ["weight"], "same"
+    return parts, "same"
+
+
+# flax -> torch layouts: Dense [in, out] -> [out, in]; conv HWIO -> OIHW;
+# ConvTranspose: flipped on both spatial axes, then [in, out, kh, kw]
+LAYOUTS = {"same": lambda t: t, "T": lambda t: t.t(),
+           "conv": lambda t: t.permute(3, 2, 0, 1),
+           "tconv": lambda t: t.flip(0, 1).permute(2, 3, 0, 1)}
+
+
+def bridge_leaf(key: str, a: torch.Tensor, family: str = "transunet"):
+    """The torch ``state_dict`` entries ``(name, tensor)`` of the flax leaf
+    ``key`` (``'params/...'`` or ``'batch_stats/...'``) of model
+    ``family``: one, or one per layer for a scan-stacked leaf; each a view
+    or a copy of ``a``, laid out by :data:`LAYOUTS`."""
+    transposed = _transposed(family)
+    col, _, path = key.partition("/")
+    if col == "batch_stats":
+        parts = path.split("/")
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(
+            parts[-1], parts[-1])
+        if leaf == parts[-1] and not _STAT_LEAF.search(leaf):
+            raise KeyError(f"unknown batch_stats leaf {key!r}")
+        return [(".".join(parts[:-1] + [leaf]), a)]
+    if col != "params":
+        raise KeyError(f"unknown collection in {key!r}")
+    if path.startswith(STACKED_PREFIX):
+        rest = path[len(STACKED_PREFIX):].split("/")
+        out = []
+        for i in range(a.shape[0]):
+            tparts, layout = _flax_layout(["encoder", "blocks", str(i)] + rest,
+                                          a.ndim - 1, transposed)
+            out.append((".".join(tparts), LAYOUTS[layout](a[i])))
+        return out
+    tparts, layout = _flax_layout(path.split("/"), a.ndim, transposed)
+    return [(".".join(tparts), LAYOUTS[layout](a))]
 
 
 def _attn_proj(parts) -> bool:
@@ -117,7 +160,7 @@ def flax_path(parts, ndim: int):
 
 
 def _leaf_to_flax(parts, a: np.ndarray, transposed):
-    """Inverse of :func:`_leaf_from_flax` on one torch leaf."""
+    """Inverse of :func:`bridge_leaf` on one torch leaf."""
     fparts = flax_path(parts, a.ndim)
     if _attn_proj(parts):
         return fparts, a.T if parts[-1] == "weight" else a
@@ -132,33 +175,12 @@ def from_flax(flat: Dict[str, np.ndarray],
               family: str = "transunet") -> Dict[str, torch.Tensor]:
     """flax-layout ``{'params/a/b': array, 'batch_stats/...': array}`` of
     model ``family`` -> torch ``state_dict`` (float32 CPU tensors)."""
-    transposed = _transposed(family)
+    _transposed(family)      # raises on an unknown family, even for {}
     out: Dict[str, torch.Tensor] = {}
-
-    def put(parts, a):
-        out[".".join(parts)] = torch.from_numpy(
-            np.array(a, dtype=np.float32, order="C"))
-
     for key, a in flat.items():
-        col, _, path = key.partition("/")
-        a = np.asarray(a)
-        if col == "batch_stats":
-            parts = path.split("/")
-            leaf = {"mean": "running_mean", "var": "running_var"}.get(
-                parts[-1], parts[-1])
-            if leaf == parts[-1] and not _STAT_LEAF.search(leaf):
-                raise KeyError(f"unknown batch_stats leaf {key!r}")
-            put(parts[:-1] + [leaf], a)
-            continue
-        if col != "params":
-            raise KeyError(f"unknown collection in {key!r}")
-        if path.startswith(STACKED_PREFIX):
-            rest = path[len(STACKED_PREFIX):].split("/")
-            for i in range(a.shape[0]):
-                put(*_leaf_from_flax(["encoder", "blocks", str(i)] + rest,
-                                     a[i], transposed))
-            continue
-        put(*_leaf_from_flax(path.split("/"), a, transposed))
+        leaf = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+        for name, t in bridge_leaf(key, leaf, family):
+            out[name] = t.clone(memory_format=torch.contiguous_format)
     return out
 
 
@@ -248,3 +270,97 @@ def random_flax_variables(model: torch.nn.Module,
             v = 0.1 * rng.standard_normal(shape)
         out[key] = v.astype(np.float32)
     return out
+
+
+class Checkpointer:
+    """Saves and restores a training state — a nested dict of tensors,
+    ints, floats and None (``train.loop.Trainer.checkpoint_state``) — as
+    one ``ckpt_{step:010d}.pt`` per save (``torch.save``), keeping the
+    newest ``max_to_keep`` (the JAX package's ``Checkpointer``, whose
+    msgpack files hold the ``TrainState``)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:010d}.pt")
+
+    def steps(self) -> List[int]:
+        pat = re.compile(r"ckpt_(\d+)\.pt$")
+        return sorted(int(m.group(1)) for m in map(pat.match,
+                                                   os.listdir(self.directory))
+                      if m)
+
+    def save(self, state: Dict[str, Any], step: int) -> None:
+        tmp = self.path(step) + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, self.path(step))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, target: Dict[str, Any], step: Optional[int] = None,
+                section: Optional[str] = None) -> Dict[str, Any]:
+        """The checkpoint of ``step`` (the latest by default) in the
+        structure of ``target``, each tensor on its template's device;
+        ``section`` restores only that top-level entry (``'model'`` for
+        serving) into ``target``.
+
+        The file must hold exactly the template's keys, shapes and
+        non-float dtypes, else this raises.  A floating-point tensor whose
+        dtype differs from its template's is cast to it, with one printed
+        line naming it (the JAX package casts every mismatch, silently).
+        Generator states are CPU byte tensors of their generator's kind, so
+        a train state written on the card resumes on the card; the model
+        restores on either device."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        raw = torch.load(self.path(step), map_location="cpu",
+                         weights_only=True)
+        if section is not None:
+            raw = raw[section]
+        return _restore_like(target, raw, section or "")
+
+
+def _restore_like(template: Any, raw: Any, where: str) -> Any:
+    if isinstance(template, dict):
+        if not isinstance(raw, dict):
+            raise TypeError(f"{where}: checkpoint holds {type(raw).__name__}, "
+                            f"want a dict")
+        missing, extra = set(template) - set(raw), set(raw) - set(template)
+        if missing or extra:
+            raise KeyError(f"{where or 'checkpoint'}: missing "
+                           f"{sorted(missing)[:5]}, extra {sorted(extra)[:5]}")
+        return {k: _restore_like(template[k], raw[k], f"{where}/{k}")
+                for k in template}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(raw, (list, tuple)) or len(raw) != len(template):
+            raise ValueError(f"{where}: checkpoint holds {type(raw).__name__} "
+                             f"of another length")
+        return [_restore_like(t, r, f"{where}/{i}")
+                for i, (t, r) in enumerate(zip(template, raw))]
+    if isinstance(template, torch.Tensor):
+        if not isinstance(raw, torch.Tensor):
+            raise TypeError(f"{where}: checkpoint holds "
+                            f"{type(raw).__name__}, want a tensor")
+        if raw.shape != template.shape:
+            raise ValueError(f"{where}: shape {tuple(raw.shape)} in the "
+                             f"checkpoint, {tuple(template.shape)} wanted")
+        if raw.dtype != template.dtype:
+            if not (raw.dtype.is_floating_point
+                    and template.dtype.is_floating_point):
+                raise TypeError(f"{where}: dtype {raw.dtype} in the "
+                                f"checkpoint, {template.dtype} wanted")
+            print(f"restore: cast {where} from {raw.dtype} to "
+                  f"{template.dtype}", flush=True)
+        return raw.to(template.device, template.dtype)
+    if type(raw) is not type(template):
+        raise TypeError(f"{where}: checkpoint holds {type(raw).__name__}, "
+                        f"want {type(template).__name__}")
+    return raw

@@ -2,7 +2,8 @@
 ``ultrasound_modeling_tpu/utils/logging.py`` with the scalar half of its
 TensorBoard writer (``utils/tb_writer.py``), stdlib + numpy, so that the
 port imports nothing of the JAX package.  The image panels are not copied:
-the port's Trainer logs no images yet (ROADMAP Queue 1 item 8).
+the port's Trainer logs no images yet (ROADMAP Queue 1 item 6, "Out-of-core
+data, image panels, profiling").
 
 Scalars append to ``<dir>/scalars.jsonl`` as ``{"step": n, "time": t, ...}``
 lines, go to a TensorBoard ``events.out.tfevents.*`` file beside it, and are
