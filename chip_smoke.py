@@ -12,7 +12,8 @@ Phases (each checks its results; any failure exits non-zero):
    print ptxas's registers and spills of K2's functions; for each function
    of the kernels built on the tensor cores (the
    attention forward core, K4's per-window forward core, both passes of
-   K3's backward, K4's backward kernel, and the wgmma GEMM
+   K3's backward, K4's backward kernels (its attention kernel and
+   ``wa_wgrad``'s wgmma weight gradients), and the wgmma GEMM
    behind ``tb_linear`` and ``wa_linear`` with wa_linear's narrow
    schedule) print ptxas's registers, spills
    and shared memory and the count of HMMA / HGMMA instructions in its SASS
@@ -42,13 +43,18 @@ Phases (each checks its results; any failure exits non-zero):
    whole forward with an f32 and a bf16 input;
    K4's backward at the four Swin stages at b64: its
    attention kernel ``wa_attention_bwd`` against its plain version beside
-   SDPA's backward, and the whole backward (autograd through
+   SDPA's backward, its weight and bias gradients ``wa_wgrad`` against
+   theirs with x and g f32 and upcast from bf16 (two calls bit-equal, the
+   dropped lo pass bit-equal to three passes), both kernels also as device
+   time a call back to back past the L2 (``wa_wgrad`` beside the parent's
+   torch.matmul steps), and the whole backward (autograd through
    ``WindowAttentionFused``) in f32 and bf16 against autograd through the
    plain version, beside autograd's backward of
    ``F.multi_head_attention_forward``; at stage 1 the kernel's two calls
    bit-equal, the memory the forward keeps for the backward and the
-   backward's peak extra memory, beside the plain route's, and
-   the time of each of its steps; K2 (forward and backward, f32 and bf16,
+   backward's peak extra memory, beside the plain route's, the time of
+   each of its steps and the aten operators it dispatches (no product:
+   its weight gradients are ``wa_wgrad``'s); K2 (forward and backward, f32 and bf16,
    LeakyReLU folded, at the eight branch shapes of the flagship's four
    stages at batch 32, each also as device time per launch over inputs
    read in turn past the L2, beside ``F.group_norm`` and autograd's
@@ -81,7 +87,8 @@ Phases (each checks its results; any failure exits non-zero):
    none for the two U-Nets) must have launched;
 5. one train step at full width and each family's batch (TransUNet 32, ViT
    8, Swin 32), kernel route (K2 in the TransUNet; K3 under flash, K5 under
-   pallas; K4 with its backward in the Swin) against the plain route from
+   pallas; K4 with its backward in the Swin, ``wa_wgrad`` launched in
+   every K4 backward) against the plain route from
    the same seeded weights, batch and drop-path generator state,
    augmentation off: loss and every parameter gradient, TransUNet f32
    composed, flash and pallas and bf16 flash, ViT f32 composed, flash and
@@ -108,7 +115,7 @@ Phases (each checks its results; any failure exits non-zero):
    are zeroed just before each run and read just after: K2 must have
    launched in every TransUNet run, K3 in the flash runs, K5 in the pallas
    run, K4 (its per-window core and wa_linear's narrow schedule among its
-   kernels) and its backward kernel in the Swin runs, none in the U-Net
+   kernels) and its backward kernels in the Swin runs, none in the U-Net
    runs; the loss is finite and the weights (and the BatchNorm running
    statistics) moved;
 7. K6, which no path of the system calls, as a caller uses it: the
@@ -147,6 +154,7 @@ K4_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:152"
 K1_SRC = f"{PKG}/csrc/transformer_block.cu"
 K4_SRC = f"{PKG}/csrc/window_attention.cu"
 K4B_SRC = f"{PKG}/csrc/window_attention_bwd.cu"
+K4W_SRC = f"{PKG}/csrc/window_attention_wgrad.cu"
 GEMM_SRC = f"{PKG}/csrc/gemm_sm90.cuh"
 K4B_TPU = "ultrasound_modeling_tpu/ops/pallas_kernels.py:206"
 K2_SRC = f"{PKG}/csrc/group_flat_norm.cu"
@@ -170,7 +178,7 @@ K4_KERNELS = ("window_attention", "wa_linear", "wa_attention_core")
 # K4's kernels at the Swin's shapes: the per-window core (windows of at most
 # 32 tokens) and wa_linear's narrow schedule (K a whole multiple of 96)
 K4_SWIN_KERNELS = K4_KERNELS + ("wa_window_fwd", "wa_linear_narrow")
-K4_TRAIN_KERNELS = K4_SWIN_KERNELS + ("wa_attention_bwd",)
+K4_TRAIN_KERNELS = K4_SWIN_KERNELS + ("wa_attention_bwd", "wa_wgrad")
 SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
                        "tb_attention_core") + K4_KERNELS
                  for fam in ("transunet", "vit")}
@@ -341,7 +349,7 @@ def f32_tol(want):
 # per-window forward core and its backward among them), the GEMM of
 # tb_linear (bf16) and wa_linear (f32), and wa_linear's narrow schedule
 TENSOR_CORE_KERNELS = ("attention_fwd_kernel", "fa_bwd_query_kernel",
-                       "fa_bwd_key_kernel", "wa_bwd_kernel",
+                       "fa_bwd_key_kernel", "wa_bwd_kernel", "wa_wgrad_kernel",
                        "wa_window_fwd_kernel", "linear_wgmma_kernel",
                        "linear_narrow_kernel")
 # each operand type the GEMM is built for must hold wgmma (HGMMA); the
@@ -930,6 +938,101 @@ def k4_bwd_core_check(checks: Checks, label, x, ws, am, heads):
     return args
 
 
+def past_l2(tensors, mb: float = 100.0):
+    """Copies of ``tensors`` enough that reading them in turn moves more
+    than ``mb`` MB (past the 50 MB L2, as the train step finds them); the
+    first set is the tensors themselves."""
+    import math
+    n = sum(t.numel() * t.element_size() for t in tensors)
+    sets = max(1, math.ceil(mb * 1e6 / n))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(sets - 1)]
+
+
+def k4_bwd_core_device(core, where) -> None:
+    """K4 backward's attention kernel as device time a call back to back
+    over input copies past the L2, beside its byte bound."""
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    qkv, do, am, n, heads, scale = core
+    sets = past_l2((qkv, do))
+    ms = back_to_back_ms([lambda s=s: K.window_attention_bwd_core(
+        s[0], s[1], am, n, heads, scale) for s in sets])
+    bound = 1e3 * 2 * (qkv.numel() + do.numel()) * 4 / HBM_BYTES_S
+    log(f"    wa_attention_bwd device ms a call, back to back past the L2 "
+        f"({len(sets)} input sets): {ms:.4f} (bound {bound:.4f}, "
+        f"{100 * bound / ms:.0f}%), {where}")
+
+
+def k4_wgrad_check(checks: Checks, where, core) -> None:
+    """K4 backward's weight-gradient kernel (``wa_wgrad``) against its plain
+    version on the attention kernel's dqkv and context, with x2 and g2 f32
+    and upcast from bf16 (its lo pass dropped under the claims, bit-equal to
+    three passes); two calls bit-equal; device time a call back to back past
+    the L2 beside today's (d)+(e) in torch.matmul, which no one call
+    replaces."""
+    import torch
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    qkv, do, am, n, heads, scale = core
+    dqkv, o, _ = K.window_attention_bwd_core(*core)
+    rows, c = o.shape
+    g = torch.Generator(device=o.device).manual_seed(rows)
+    x2 = torch.randn(rows, c, generator=g, device=o.device)
+    g2 = torch.randn(rows, c, generator=g, device=o.device)
+    ops = [mm(c, 3 * c, rows, PEAK_F32_MM), mm(c, c, rows, PEAK_F32_MM)]
+    text = "d_qkv_w, d_qkv_b, d_proj_w, d_proj_b 1e-4 x max(1,|plain|)"
+    ones = torch.ones(rows, device=o.device)
+    for dname in ("f32", "bf16"):
+        if dname == "bf16":
+            x2, g2 = x2.to(torch.bfloat16).float(), g2.to(torch.bfloat16).float()
+        claims = dict(x_tf32=dname == "bf16", g_tf32=dname == "bf16")
+        args = (dqkv, x2, g2, o)
+        row = checks.compare(
+            "wa_wgrad", f"K4 weight gradients, {where} {dname}",
+            lambda: K.window_attention_wgrad(*args, **claims),
+            lambda: K.window_attention_wgrad_plain(*args),
+            (f32_tol,) * 4, text, inputs=args, ops=ops, library=None,
+            library_text="no one call gives the four; today's (d)+(e) below")
+        a = K.window_attention_wgrad(*args, **claims)
+        b = K.window_attention_wgrad(*args, **claims)
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        three = all(torch.equal(u, v) for u, v in zip(
+            a, K.window_attention_wgrad(*args)))
+        sets = past_l2(args)
+        ms = back_to_back_ms([lambda s=s: K.window_attention_wgrad(*s, **claims)
+                              for s in sets])
+        lib = back_to_back_ms([lambda s=s: (s[2].t() @ s[3], s[0].t() @ s[1],
+                                            ones @ s[0], ones @ s[2])
+                               for s in sets])
+        log(f"    wa_wgrad {dname}: two calls {'bit-equal' if same else 'DIFFER'}"
+            + (f", two passes {'bit-equal to' if three else 'DIFFER from'} three"
+               if dname == "bf16" else "")
+            + f"; device ms a call, back to back past the L2 ({len(sets)} input "
+              f"sets): {ms:.4f} (bound {row['bound_ms']:.4f}, "
+              f"{100 * row['bound_ms'] / ms:.0f}%); today's (d)+(e) in "
+              f"torch.matmul {lib:.4f}")
+        require(same and (dname == "f32" or three),
+                f"wa_wgrad {where} {dname}: two calls differ or the dropped "
+                f"lo pass changed the bits")
+        del sets
+    del dqkv, o, x2, g2
+
+
+def aten_ops(fn):
+    """The aten operators ``fn()`` dispatches (kernel launches through the
+    port's C entry points are not among them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
+
+
 def k4_bwd_split(x, ws, am, heads, go) -> None:
     """The time of each step of K4's backward on the card (ops/kernels.
     _window_attention_bwd) at one shape, and of the whole call."""
@@ -942,18 +1045,19 @@ def k4_bwd_split(x, ws, am, heads, go) -> None:
     qkv = K.linear(x2, qkv_w, qkv_b)
     do = K.linear(g2, proj_w.t().contiguous())
     dqkv, o, _ = K.window_attention_bwd_core(qkv, do, am, n, heads, scale)
+    x_tf32, g_tf32 = x.dtype == torch.bfloat16, go.dtype == torch.bfloat16
+    ones = torch.ones(x2.shape[0], device=x.device)
     steps = {
-        "a qkv (wa_linear)": lambda: K.linear(x2, qkv_w, qkv_b),
+        "a qkv (wa_linear)": lambda: K.linear(x2, qkv_w, qkv_b, a_tf32=x_tf32),
         "b do (transpose + wa_linear)": lambda: K.linear(
-            g2, proj_w.t().contiguous()),
+            g2, proj_w.t().contiguous(), a_tf32=g_tf32),
         "c core (wa_attention_bwd)": lambda: K.window_attention_bwd_core(
             qkv, do, am, n, heads, scale),
-        "d d_proj_w = g^T.o (torch.matmul)": lambda: g2.t() @ o,
-        "d d_qkv_w = dqkv^T.x (torch.matmul)": lambda: dqkv.t() @ x2,
-        "e bias sums (ones-vector products)": lambda: (
-            torch.ones(x2.shape[0], device=x.device) @ dqkv,
-            torch.ones(x2.shape[0], device=x.device) @ g2),
-        "f dx (transpose + wa_linear)": lambda: K.linear(
+        "d weight and bias gradients (wa_wgrad)": lambda: K.window_attention_wgrad(
+            dqkv, x2, g2, o, x_tf32=x_tf32, g_tf32=g_tf32),
+        "  the same in torch.matmul (the parent's d, e)": lambda: (
+            g2.t() @ o, dqkv.t() @ x2, ones @ dqkv, ones @ g2),
+        "e dx (transpose + wa_linear)": lambda: K.linear(
             dqkv, qkv_w.t().contiguous(), out_dtype=x.dtype),
         "whole window_attention_bwd": lambda: K.window_attention_bwd(
             x, qkv_w, qkv_b, proj_w, am, go, heads, scale),
@@ -1064,6 +1168,8 @@ def phase_swin_k4(checks: Checks, dev, rand) -> None:
         k4_forward_kernels(checks, where, xs, ws, am, hs, stage == 0)
         core = k4_bwd_core_check(checks, f"K4 backward core, {where}", xs, ws,
                                  am, hs)
+        k4_bwd_core_device(core, where)
+        k4_wgrad_check(checks, where, core)
         if stage == 0:
             a = K.window_attention_bwd_core(*core)
             b = K.window_attention_bwd_core(*core)
@@ -1119,6 +1225,14 @@ def phase_swin_k4(checks: Checks, dev, rand) -> None:
                     f"the backward, whose peak extra memory is {peaks[0]:.1f} / "
                     f"{peaks[1]:.1f} MB")
                 k4_bwd_split(x, ws, am, hs, go)
+                called = aten_ops(lambda: K.window_attention_bwd(
+                    x, *ws[:3], am, go, hs, scale))
+                products = sorted({op for op in called if op in (
+                    "mm", "addmm", "matmul", "bmm", "mv", "dot", "baddbmm")})
+                log(f"  K4 backward {dname}: aten ops {sorted(set(called))}; "
+                    f"no product among them: {not products}")
+                require(not products, f"K4 backward {dname}: the weight "
+                                      f"gradients ran in torch: {products}")
             del x, go, fused, plain
         del xs, ws, table, am
         torch.cuda.empty_cache()
@@ -1713,6 +1827,10 @@ def phase_train_step(dev, seed: int):
                 need = needed_kernels(family, impl)
                 require(all(counts.get(k, 0) > 0 for k in need),
                         f"{name}: kernel route did not launch {need}: {counts}")
+                if impl == "k4":
+                    require(counts["wa_wgrad"] == counts["wa_attention_bwd"],
+                            f"{name}: wa_wgrad did not run in every K4 "
+                            f"backward: {counts}")
             else:
                 require(not counts, f"{name}: plain route launched {counts}")
         torch.backends.cudnn.deterministic = False
@@ -2421,6 +2539,7 @@ def main(argv=None) -> int:
              "wa_linear": (K4_SRC, K4_TPU), "wa_attention_core": (K4_SRC, K4_TPU),
              "wa_window_fwd": (K4_SRC, K4_TPU), "wa_linear_narrow": (GEMM_SRC, K4_TPU),
              "wa_attention_bwd": (K4B_SRC, K4B_TPU),
+             "wa_wgrad": (K4W_SRC, K4B_TPU),
              "group_flat_norm_fwd": (K2_SRC, K2_FWD_TPU),
              "group_flat_norm_bwd": (K2_SRC, K2_BWD_TPU),
              "flash_attention_fwd": (K3_SRC, K3_FWD_TPU),

@@ -264,6 +264,80 @@ def test_window_attention_bwd_core_is_deterministic(cuda, stage):
         assert torch.equal(a, b)
 
 
+# tokens a frame at each Swin stage (64x20, 32x10, 16x5, 9x3): the rows of
+# K4's backward are frames x these
+STAGE_TOKENS = {"stage1": 1280, "stage2": 320, "stage3": 80, "stage4": 27}
+
+
+def _wgrad_inputs(dev, rows, c, bf16_origin=False, seed=12):
+    """dqkv [rows, 3C], x2, g2, o [rows, C], float32; x2 and g2 upcast from
+    bf16 under bf16_origin."""
+    g = torch.Generator().manual_seed(seed)
+    dqkv, x2, g2, o = (_rand(g, dev, rows, w) for w in (3 * c, c, c, c))
+    if bf16_origin:
+        x2, g2 = x2.to(BF).float(), g2.to(BF).float()
+    return dqkv, x2, g2, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(SWIN_STAGES))
+@pytest.mark.parametrize("origin", ["f32", "bf16"])
+def test_wgrad_matches_plain_at_swin_stages(cuda, stage, origin):
+    """K4 backward's weight-gradient kernel (``wa_wgrad``) against its plain
+    version at the four Swin stages' rows and widths: d_qkv_w, d_qkv_b,
+    d_proj_w and d_proj_b within 1e-4 x max(1, max|plain|), with x2 and g2
+    f32 or upcast from bf16 (then claimed exact, the lo pass dropped); one
+    launch of the entry point."""
+    c = SWIN_STAGES[stage][2]
+    rows = STAGE_FRAMES[stage] * STAGE_TOKENS[stage]
+    bf16 = origin == "bf16"
+    args = _wgrad_inputs(cuda, rows, c, bf16)
+    K.reset_launch_counts()
+    got = K.window_attention_wgrad(*args, x_tf32=bf16, g_tf32=bf16)
+    assert K.LAUNCHES["wa_wgrad"] == 1
+    want = K.window_attention_wgrad_plain(*args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32, i
+        assert (a - b).abs().max().item() <= _f32_tol(b), i
+
+
+# (rows, C): row counts under, at and past a k-block (32) and a run, C off
+# the 64 x 96 output tile (100, 36, 4) and the Swin's widest (768)
+WGRAD_RAGGED = [(1, 96), (31, 64), (32, 64), (33, 64), (1000, 100), (4097, 96),
+                (77, 36), (129, 768), (300, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", WGRAD_RAGGED)
+def test_wgrad_at_ragged_rows(cuda, rows, c):
+    """The weight-gradient kernel away from the Swin's shapes: its rows
+    zero-filled past a run's end and its columns past the operands', within
+    1e-4 x max(1, max|plain|)."""
+    args = _wgrad_inputs(cuda, rows, c, seed=13)
+    got = K.window_attention_wgrad(*args)
+    want = K.window_attention_wgrad_plain(*args)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert (a - b).abs().max().item() <= _f32_tol(b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["stage1", "stage4"])
+def test_wgrad_is_deterministic_and_drops_the_lo_pass_bit_equal(cuda, stage):
+    """Two calls give the same bits (the runs' partial sums add in one order,
+    no float atomics), and with x2 and g2 upcast from bf16 the claims that
+    drop their lo pass change no bit."""
+    c = SWIN_STAGES[stage][2]
+    rows = STAGE_FRAMES[stage] * STAGE_TOKENS[stage]
+    for bf16 in (False, True):
+        args = _wgrad_inputs(cuda, rows, c, bf16, seed=14)
+        first = K.window_attention_wgrad(*args, x_tf32=bf16, g_tf32=bf16)
+        second = K.window_attention_wgrad(*args, x_tf32=bf16, g_tf32=bf16)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        if bf16:
+            three = K.window_attention_wgrad(*args)
+            assert all(torch.equal(a, b) for a, b in zip(first, three))
+
+
 @pytest.mark.cuda
 def test_window_attention_bwd_raises_above_its_limits(cuda):
     """Windows of 33 tokens: the CUDA branch raises, it does not run the
@@ -305,6 +379,7 @@ def test_window_attention_backward_matches_plain_autograd(cuda, stage, dtype):
         fused = fn is K.window_attention_fused
         assert K.LAUNCHES["window_attention"] == fused
         assert K.LAUNCHES["wa_attention_bwd"] == fused
+        assert K.LAUNCHES["wa_wgrad"] == fused
     for i, (got, want) in enumerate(zip(*grads)):
         assert got.dtype == want.dtype == args[i].dtype
         tol = (_f32_tol(want) if got.dtype == torch.float32

@@ -5,6 +5,7 @@ kernel names that the card's reports look up.  The kernels themselves run in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``, on the card."""
 
 import importlib.util
+import inspect
 import re
 from pathlib import Path
 
@@ -215,3 +216,99 @@ def test_window_attention_drops_the_a_lo_pass_only_for_a_bf16_x():
         K._window_attention(x, *ws, heads, None, 32 ** -0.5, lin,
                             K.attention_core_plain)
         assert calls == [dtype == torch.bfloat16, False]
+
+
+# rows of K4's backward at each Swin stage a frame (64x20, 32x10, 16x5 and
+# 9x3 tokens) and its C
+SWIN_ROWS_C = ((1280, 96), (320, 192), (80, 384), (27, 768))
+
+
+@pytest.mark.parametrize("frames", [32, 64])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_wgrad_plan_splits_the_rows_by_shape_and_card(frames, sms):
+    """The weight-gradient kernel's split of the rows is a function of the
+    shape and the SM count alone; its runs are whole 32-row k-blocks that
+    cover the rows exactly once; its blocks stay within the blocks an SM it
+    fills, so the partial sums never outgrow one output tile a block; the
+    Swin's stage 4 takes no split, and stage 1 a deep one."""
+    assert list(inspect.signature(K.wgrad_plan).parameters) == [
+        "rows", "c", "sm_count"]
+    tp, tq = K.WGRAD_TILE
+    for i, (per_frame, c) in enumerate(SWIN_ROWS_C):
+        rows = frames * per_frame
+        splits, per = K.wgrad_plan(rows, c, sms)
+        assert (splits, per) == K.wgrad_plan(rows, c, sms)
+        assert per % K.WGRAD_KB == 0
+        assert (splits - 1) * per < rows <= splits * per
+        tiles = (-(-3 * c // tp) + -(-c // tp)) * -(-c // tq)
+        slots = K.WGRAD_BLOCKS_PER_SM * sms
+        assert splits == 1 or splits * tiles <= slots
+        workspace = splits * (4 * c * c + 4 * c) if splits > 1 else 0
+        assert workspace <= slots * (tp * tq + tp)
+        if i == 3:
+            assert splits == 1
+        if i == 0:
+            assert splits * tiles > slots // 2 and splits >= 8
+
+
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 127, 1000, 4097])
+def test_wgrad_plan_covers_ragged_rows(rows):
+    """Row counts off the k-block and tiny ones: one run when there are
+    fewer than four k-blocks of rows, and the runs still cover every row
+    once."""
+    splits, per = K.wgrad_plan(rows, 96, 132)
+    assert per % K.WGRAD_KB == 0 and (splits - 1) * per < rows <= splits * per
+    if rows < 4 * K.WGRAD_KB:
+        assert splits == 1
+
+
+def test_wgrad_scheme_holds_the_f32_contract_at_swin_depth():
+    """The weight-gradient kernel's arithmetic, emulated: A^T.B over the
+    40,960 rows of stage 1 at b32 as three TF32 passes (hi = x & 0xffffe000,
+    lo rounded to TF32) summed from zero every 8-row k-step, each k-step's
+    sum added into f32 sums, over the plan's runs added in run order: within
+    1e-5 of max|out| against float64, where one TF32 pass (hi.hi) misses by
+    far."""
+    rows, width = 40960, 16
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.standard_normal((rows, width)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((rows, width)).astype(np.float32))
+    want = a.double().t() @ b.double()
+    a_hi, b_hi, a_lo, b_lo = _tf32(a), _tf32(b), _tf32_lo(a), _tf32_lo(b)
+    steps = [x.double().view(-1, 8, width) for x in (a_hi, a_lo, b_hi, b_lo)]
+    ah, al, bh, bl = steps
+    per_step = (torch.einsum("kri,krj->kij", ah, bl)
+                + torch.einsum("kri,krj->kij", al, bh)
+                + torch.einsum("kri,krj->kij", ah, bh)).float()
+    splits, per = K.wgrad_plan(rows, 96, 132)
+    total = torch.zeros(width, width)
+    for s in range(splits):
+        run = torch.zeros(width, width)
+        for k in range(s * per // 8, min(rows, (s + 1) * per) // 8):
+            run += per_step[k]
+        total += run
+    bound = 1e-5 * want.abs().max().item()
+    assert (total.double() - want).abs().max().item() <= bound
+    one = a_hi.double().t() @ b_hi.double()
+    assert (one - want).abs().max().item() > 10 * bound
+
+
+def test_k4_backward_kernels_are_reported():
+    """K4 backward's two kernels are ``__global__`` functions of csrc/, on
+    chip_smoke.py's tensor-core report (HMMA required) and in profiling.py's
+    own columns, which no other column also counts."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    names = _global_kernels()
+    for kern, group in (("wa_bwd_kernel", "k4_bwd_core"),
+                        ("wa_wgrad_kernel", "k4_bwd_wgrad")):
+        assert kern in names
+        assert kern in chip_smoke.TENSOR_CORE_KERNELS
+        assert kern in profiling.GROUPS[group]
+    assert "wa_wgrad" in chip_smoke.K4_TRAIN_KERNELS
+    for group, keys in profiling.GROUPS.items():
+        for key in keys:
+            for kern in ("wa_bwd_kernel", "wa_wgrad_kernel"):
+                assert key == kern or key not in kern, (group, key)

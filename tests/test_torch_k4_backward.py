@@ -131,15 +131,16 @@ def test_bwd_core_plain_matches_jax(case):
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_card_sequence_matches_plain_backward(case, dtype):
-    """Steps a-f as the card runs them (``_window_attention_bwd``: the two
-    GEMMs, the attention core, the weight gradients, the bias sums, dx in
-    x's dtype), here with the plain GEMM and the plain core, against the
-    plain backward: f32 within 1e-5 x max|plain| (sums in another order),
-    dx under a bf16 x within 1 bf16 quantum."""
+    """Steps a-e as the card runs them (``_window_attention_bwd``: the two
+    GEMMs, the attention core, the weight and bias gradients, dx in x's
+    dtype), here with the plain GEMM, the plain core and the plain weight
+    gradients, against the plain backward: f32 within 1e-5 x max|plain|
+    (sums in another order), dx under a bf16 x within 1 bf16 quantum."""
     a, addmask, n, heads, scale = _inputs(case, seed=2)
     args = _port_args(a, addmask, dtype)
     got = K._window_attention_bwd(*args, heads, scale, K.linear_plain,
-                                  K.window_attention_bwd_core_plain)
+                                  K.window_attention_bwd_core_plain,
+                                  K.window_attention_wgrad_plain)
     want = K.window_attention_bwd_plain(*args, heads, scale)
     for i, (g, w) in enumerate(zip(got, want)):
         if w is None:
@@ -149,6 +150,53 @@ def test_card_sequence_matches_plain_backward(case, dtype):
         top = w.float().abs().max().item()
         tol = top / 256 if g.dtype == torch.bfloat16 else 1e-5 * top
         assert (g.float() - w.float()).abs().max().item() <= tol, i
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_wgrad_plain_matches_jax_fused_attn_bwd(case):
+    """The plain version of the weight-gradient kernel
+    (``window_attention_wgrad_plain``) on the plain core's dqkv and context
+    equals JAX's ``_fused_attn_bwd`` d_qkv_w, d_qkv_b, d_proj_w and d_proj_b
+    (f32, rtol 1e-4, atol 1e-5 x max)."""
+    a, addmask, n, heads, scale = _inputs(case, seed=4)
+    want, _ = _jax_bwd(a, addmask, n, heads, scale)
+    x, qkv_w, qkv_b, proj_w, am, g = _port_args(a, addmask)
+    c = x.shape[-1]
+    x2, g2 = x.reshape(-1, c), g.reshape(-1, c)
+    qkv = K.linear_plain(x2, qkv_w, qkv_b)
+    dqkv, o, _ = K.window_attention_bwd_core_plain(qkv, g2 @ proj_w, am, n,
+                                                   heads, scale)
+    got = K.window_attention_wgrad_plain(dqkv, x2, g2, o)
+    names = ["d_qkv_w", "d_qkv_b", "d_proj_w", "d_proj_b"]
+    for name, gt, w in zip(names, got, want[1:5]):
+        gt = gt.numpy()
+        if gt.ndim == 2:
+            gt = gt.T
+        _close(gt.reshape(w.shape), w, name)
+
+
+def test_wgrad_tf32_claims_are_checked_on_the_cpu():
+    """``window_attention_wgrad`` on CPU tensors gives the plain version's
+    result bit for bit, with or without the claims that x2 and g2 are
+    exactly TF32 (both upcast from bf16); a claim about an operand below
+    TF32 precision raises, and so does a dqkv that is not 3C wide."""
+    a, addmask, n, heads, scale = _inputs("stage1_mask_bias", seed=5)
+    x, qkv_w, qkv_b, proj_w, am, g = _port_args(a, addmask)
+    c = x.shape[-1]
+    x2, g2 = x.reshape(-1, c), g.reshape(-1, c)
+    dqkv, o, _ = K.window_attention_bwd_core_plain(
+        K.linear_plain(x2, qkv_w, qkv_b), g2 @ proj_w, am, n, heads, scale)
+    x16, g16 = x2.to(torch.bfloat16).float(), g2.to(torch.bfloat16).float()
+    want = K.window_attention_wgrad_plain(dqkv, x16, g16, o)
+    for claims in ({}, {"x_tf32": True}, {"g_tf32": True},
+                   {"x_tf32": True, "g_tf32": True}):
+        got = K.window_attention_wgrad(dqkv, x16, g16, o, **claims)
+        assert all(torch.equal(u, w) for u, w in zip(got, want)), claims
+    for claims in ({"x_tf32": True}, {"g_tf32": True}):
+        with pytest.raises(ValueError, match="below TF32"):
+            K.window_attention_wgrad(dqkv, x2, g2, o, **claims)
+    with pytest.raises(ValueError, match="3C"):
+        K.window_attention_wgrad(dqkv[:, :-1].contiguous(), x2, g2, o)
 
 
 @pytest.mark.parametrize("n,head_dim,ok", [(32, 32, True), (9, 160, True),
@@ -165,19 +213,26 @@ def test_window_bwd_shape_guard(n, head_dim, ok):
 
 
 def test_window_bwd_plan_spreads_and_sums_in_blocks():
-    """One window a warp without an additive matrix; with one, at least two
-    where the variant repeats (so the partial sums are at most half of
-    [nBW, heads, N, N]), the Swin's stage 1 at b64 four on 132 SMs, a single
-    variant (stage 4's bias alone) still spread over the card, and never
-    more windows than repeats of the variant."""
-    assert K.window_bwd_plan(4096, 64, 3, False, 132) == 1
-    assert K.window_bwd_plan(4096, 64, 3, True, 132) == 4
-    per = K.window_bwd_plan(192, 1, 24, True, 132)
-    assert per == 2 and -(-192 // per) * 24 >= 132 * 8
-    assert K.window_bwd_plan(64, 64, 3, True, 132) == 1
-    for nbw, nw, heads in ((1024, 16, 6), (256, 4, 12), (512, 64, 3)):
-        per = K.window_bwd_plan(nbw, nw, heads, True, 132)
-        assert 2 <= per <= nbw // nw
+    """Each warp walks windows of one (variant, head) in slices: the warps
+    (slices x variants x heads) fill at most one wave of the card's resident
+    warps unless one slice already does, cover every repeat of the variant
+    once, and hold one d_addmask partial each.  On 132 SMs the Swin's stage
+    1 at b64 (64 variants, 3 heads, eight warps an SM) walks 13 windows a
+    warp, stage 4's bias alone (one variant, 24 heads, twelve warps an SM)
+    3, and a slice is never longer than the variant's repeats."""
+    assert K.window_bwd_plan(4096, 20, 64, 3, 132) == 13
+    assert K.window_bwd_plan(192, 9, 1, 24, 132) == 3
+    assert K.window_bwd_plan(64, 20, 64, 3, 132) == 1
+    for nbw, n, nw, heads in ((4096, 20, 64, 3), (1024, 20, 16, 6),
+                              (256, 20, 4, 12), (192, 9, 1, 24),
+                              (2048, 20, 64, 3), (96, 9, 1, 24),
+                              (15, 32, 1, 2), (5, 5, 1, 2)):
+        per = K.window_bwd_plan(nbw, n, nw, heads, 132)
+        reps = nbw // nw
+        slices = -(-reps // per)
+        assert 1 <= per <= reps and (slices - 1) * per < reps
+        resident = K.WINDOW_BWD_WARPS[-(-n // 8)] * 132
+        assert slices * nw * heads <= resident or slices == 1
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():

@@ -40,6 +40,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// x's part below its TF32 truncation (what the tensor core reads of x),
+// itself rounded to the nearest TF32 value: unbiased, within 2^-21 of x
+// (left to the tensor core's truncation, every product would come out
+// short by ~2^-21 of itself on average)
+__device__ __forceinline__ float tf32_lo(float x) {
+  const float lo = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float((__float_as_uint(lo) + 0x1000u) & 0xffffe000u);
+}
+
 // ---- shared-memory barriers and bulk copies (the GEMM's TMA ring, K2's
 // tile ring) ----
 

@@ -95,15 +95,6 @@ template <typename T> __host__ __device__ constexpr size_t gemm_smem_bytes() {
          3 * GEMM_STAGES * sizeof(uint64_t);
 }
 
-// x's part below its TF32 truncation (what the tensor core reads of x),
-// itself rounded to the nearest TF32 value: unbiased, within 2^-21 of x
-// (left to the tensor core's truncation, every product would come out
-// short by ~2^-21 of itself on average)
-__device__ __forceinline__ float tf32_lo(float x) {
-  const float lo = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-  return __uint_as_float((__float_as_uint(lo) + 0x1000u) & 0xffffe000u);
-}
-
 // ---- PTX wrappers ----
 
 // 2-D TMA load of the box at (k, row) into shared memory, completing on bar

@@ -28,7 +28,8 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   package): qkv and ``g . proj_w`` on ``wa_linear``, the attention part
   (recomputed P, dq | dk | dv, the context and d_addmask) in one kernel,
   ``wa_attention_bwd`` (``csrc/window_attention_bwd.cu``, windows of at
-  most 32 tokens), the weight gradients in torch.matmul and dx on
+  most 32 tokens), the weight and bias gradients in another, ``wa_wgrad``
+  (``csrc/window_attention_wgrad.cu``, split over the rows) and dx on
   ``wa_linear``.
 * **K2** ``group_flat_norm`` — replaces ``group_flat_norm``
   (``pallas_kernels.py:1113``; ``_gfn_fwd_pallas`` ``:1037`` and
@@ -111,6 +112,9 @@ SOURCES = {
     "window_attention_bwd.cu": {
         "wa_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _F, _P]},
+    "window_attention_wgrad.cu": {
+        "wa_wgrad": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _P]},
     "group_flat_norm.cu": {
         "group_flat_norm_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _F, _P],
@@ -129,6 +133,9 @@ SOURCES = {
 MAX_SEQ = 160    # attention_core / flash_attention limits (csrc/*.cu)
 MAX_HEAD_DIM = 160
 WINDOW_BWD_MAX_SEQ = 32  # wa_attention_bwd's window limit (head dim as above)
+# its warps a block, one block an SM, by key tiles of 8 (csrc/
+# window_attention_bwd.cu wb_warps: as many as two window buffers each fit)
+WINDOW_BWD_WARPS = {1: 12, 2: 12, 3: 8, 4: 6}
 # wa_attention_core runs its per-window kernel (wa_window_fwd_kernel) on
 # windows of at most this many tokens, attention_fwd_kernel above
 WINDOW_FWD_MAX_SEQ = 32
@@ -136,6 +143,13 @@ WINDOW_FWD_MAX_SEQ = 32
 # its output tile and its persistent blocks an SM
 NARROW_TILE = (128, 96)
 NARROW_BLOCKS_PER_SM = 1
+# K4 backward's weight-gradient kernel (csrc/window_attention_wgrad.cu):
+# its output tile (rows of the stacked [4C, C] result, each part in whole
+# tiles, and columns), the rows of a k-block, and the blocks an SM that
+# wgrad_plan fills
+WGRAD_TILE = (64, 96)
+WGRAD_KB = 32
+WGRAD_BLOCKS_PER_SM = 1
 
 # launches per CUDA entry point (csrc/*.cu), plus one per call of the three
 # ported TPU kernels, K1, K4 and K5, that run a sequence of entry points
@@ -770,16 +784,19 @@ def check_window_bwd_shape(n: int, head_dim: int) -> None:
                          f"{MAX_HEAD_DIM}, got {n} and {head_dim}")
 
 
-def window_bwd_plan(nbw: int, nw: int, num_heads: int, masked: bool,
+def window_bwd_plan(nbw: int, n: int, nw: int, num_heads: int,
                     sm_count: int) -> int:
-    """Windows ``per`` warp of K4's backward kernel: one without an additive
-    matrix; with one, enough that a warp's dS sum covers at least two
-    windows (where the variant repeats) and the grid holds about 24 warps an
-    SM.  It depends on the shape and the card alone, so d_addmask adds in
-    one order."""
-    if not masked:
-        return 1
-    return min(nbw // nw, max(2, -(-nbw * num_heads // (24 * sm_count))))
+    """Windows ``per`` warp of K4's backward kernel: each warp walks the
+    windows of one (variant, head) with the next one's loads in flight, so
+    the warps (window slices x variants x heads) come as close to one wave
+    of the card's resident warps (``WINDOW_BWD_WARPS`` an SM) as whole
+    slices allow, and the partial sums of d_addmask are one [N, N] a warp.
+    It depends on the shape and the card alone, so d_addmask adds in one
+    order."""
+    reps = nbw // nw
+    resident = WINDOW_BWD_WARPS[-(-n // 8)] * sm_count
+    slices = max(1, min(reps, resident // (nw * num_heads)))
+    return -(-reps // slices)
 
 
 def window_attention_bwd_core_plain(qkv: torch.Tensor, do: torch.Tensor,
@@ -830,8 +847,7 @@ def window_attention_bwd_core(qkv: torch.Tensor, do: torch.Tensor,
     check_window_bwd_shape(n, d)
     dev = qkv.device
     nw = 1 if addmask is None else addmask.shape[0]
-    per = window_bwd_plan(nbw, nw, num_heads, addmask is not None,
-                          _sm_count(dev))
+    per = window_bwd_plan(nbw, n, nw, num_heads, _sm_count(dev))
     dqkv = torch.empty_like(qkv)
     o = torch.empty((rows, c), dtype=_F32, device=dev)
     partial = d_addmask = None
@@ -846,26 +862,97 @@ def window_attention_bwd_core(qkv: torch.Tensor, do: torch.Tensor,
     return dqkv, o, d_addmask
 
 
+def window_attention_wgrad_plain(dqkv: torch.Tensor, x2: torch.Tensor,
+                                 g2: torch.Tensor, o: torch.Tensor,
+                                 x_tf32: bool = False, g_tf32: bool = False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor, torch.Tensor]:
+    # f32 products (TF32 off on the card); the claims change nothing here
+    return dqkv.t() @ x2, dqkv.sum(0), g2.t() @ o, g2.sum(0)
+
+
+def wgrad_plan(rows: int, c: int, sm_count: int) -> Tuple[int, int]:
+    """``(splits, per)`` of K4 backward's weight-gradient kernel: its rows
+    in runs of ``per`` (whole ``WGRAD_KB``-row k-blocks; the last run
+    short), enough that the blocks, one per (``WGRAD_TILE`` tile of the
+    stacked ``[4C, C]`` output, run), fill about ``WGRAD_BLOCKS_PER_SM`` an
+    SM, and none shorter than four k-blocks.  It depends on the shape and
+    the card alone, so the runs' partial sums add in one order; a shape
+    whose tiles alone fill the card takes one run (the Swin's stage 4), and
+    the partial sums never outgrow one tile a block."""
+    tp, tq = WGRAD_TILE
+    tiles = (-(-3 * c // tp) + -(-c // tp)) * -(-c // tq)
+    splits = max(1, min(WGRAD_BLOCKS_PER_SM * sm_count // tiles,
+                        rows // (4 * WGRAD_KB)))
+    per = -(-(-(-rows // splits)) // WGRAD_KB) * WGRAD_KB
+    return -(-rows // per), per
+
+
+def window_attention_wgrad(dqkv: torch.Tensor, x2: torch.Tensor,
+                           g2: torch.Tensor, o: torch.Tensor,
+                           x_tf32: bool = False, g_tf32: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The weight and bias gradients of K4's backward (``wa_wgrad``) from
+    the attention kernel's ``dqkv [rows, 3C]`` and context ``o [rows, C]``,
+    the forward's input ``x2`` and the output gradient ``g2`` (``[rows,
+    C]``), all float32: ``(d_qkv_w = dqkv^T.x2 [3C, C], d_qkv_b = sum of
+    dqkv's rows [3C], d_proj_w = g2^T.o [C, C], d_proj_b = sum of g2's rows
+    [C])``, the products held to the f32 contract, in one launch (and a
+    fixed-order reduce of the row runs, :func:`wgrad_plan`).  ``x_tf32`` /
+    ``g_tf32``: the caller knows every value of x2 / g2 to be exactly TF32
+    (an upcast bf16), so that product drops its lo pass, which would add
+    exact zeros: the same bits (checked on CPU tensors, where it raises if
+    one is not)."""
+    _check(dqkv, "dqkv", (_F32,))
+    rows, c3 = dqkv.shape
+    c = c3 // 3
+    if c3 % 3:
+        raise ValueError(f"dqkv width {c3} is not 3C")
+    for name, t in (("x2", x2), ("g2", g2), ("o", o)):
+        _check(t, name, (_F32,), (rows, c))
+    if not _on_cuda(dqkv, x2, g2, o):
+        for name, t, claim in (("x2", x2, x_tf32), ("g2", g2, g_tf32)):
+            if claim and not is_tf32(t):
+                raise ValueError(f"{name}: values below TF32 precision")
+        return window_attention_wgrad_plain(dqkv, x2, g2, o)
+    # 16-byte copies read the rows: C % 4 == 0 and 16-byte aligned bases
+    if c % 4 or any(t.data_ptr() % 16 for t in (dqkv, x2, g2, o)):
+        raise ValueError("wa_wgrad needs C % 4 == 0 and 16-byte aligned "
+                         "operands")
+    dev = dqkv.device
+    splits, per = wgrad_plan(rows, c, _sm_count(dev))
+    d_qkv_w = torch.empty((c3, c), dtype=_F32, device=dev)
+    d_qkv_b = torch.empty((c3,), dtype=_F32, device=dev)
+    d_proj_w = torch.empty((c, c), dtype=_F32, device=dev)
+    d_proj_b = torch.empty((c,), dtype=_F32, device=dev)
+    partial = (torch.empty((splits, 4 * c * c + 4 * c), dtype=_F32,
+                           device=dev) if splits > 1 else None)
+    _launch(build().wa_wgrad, _ptr(dqkv), _ptr(x2), _ptr(g2), _ptr(o),
+            _ptr(d_qkv_w), _ptr(d_qkv_b), _ptr(d_proj_w), _ptr(d_proj_b),
+            _ptr(partial), rows, c, splits, per, int(x_tf32), int(g_tf32),
+            _stream())
+    return d_qkv_w, d_qkv_b, d_proj_w, d_proj_b
+
+
 def _window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
-                          scale, lin, core):
-    # a bf16 x (and its bf16 g) upcast exactly, so (a) and (b) may drop
-    # their A_lo pass; every product is f32
+                          scale, lin, core, wgrad):
+    # a bf16 x (and its bf16 g) upcast exactly, so (a), (b) and (d) may
+    # drop their lo pass of it; every product is f32
     nbw, n, c = x.shape
+    x_tf32, g_tf32 = x.dtype == _BF16, g.dtype == _BF16
     x2 = x.reshape(nbw * n, c).float()
     g2 = g.reshape(nbw * n, c).float().contiguous()
-    qkv = lin(x2, qkv_w, qkv_b, a_tf32=x.dtype == _BF16)           # a
-    do = lin(g2, proj_w.t().contiguous(), a_tf32=g.dtype == _BF16)  # b
+    qkv = lin(x2, qkv_w, qkv_b, a_tf32=x_tf32)                     # a
+    do = lin(g2, proj_w.t().contiguous(), a_tf32=g_tf32)            # b
     dqkv, o, d_addmask = core(qkv, do, addmask, n, num_heads, scale)  # c
     del qkv, do              # freed here, the peak is the core's call
-    d_proj_w = g2.t() @ o                                          # d
+    d_qkv_w, d_qkv_b, d_proj_w, d_proj_b = wgrad(                  # d
+        dqkv, x2, g2, o, x_tf32=x_tf32, g_tf32=g_tf32)
     del o
-    d_qkv_w = dqkv.t() @ x2
-    ones = torch.ones(nbw * n, dtype=_F32, device=x.device)        # e
-    d_qkv_b = None if qkv_b is None else ones @ dqkv
-    d_proj_b = ones @ g2
-    dx = lin(dqkv, qkv_w.t().contiguous(), out_dtype=x.dtype)      # f
-    return (dx.view(x.shape), d_qkv_w, d_qkv_b, d_proj_w, d_proj_b,
-            d_addmask)
+    dx = lin(dqkv, qkv_w.t().contiguous(), out_dtype=x.dtype)      # e
+    return (dx.view(x.shape), d_qkv_w, None if qkv_b is None else d_qkv_b,
+            d_proj_w, d_proj_b, d_addmask)
 
 
 def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
@@ -873,19 +960,19 @@ def window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g, num_heads,
     """K4's backward, arguments and results as
     :func:`window_attention_bwd_plain`.  On the card: (a) qkv = x.qkv_w^T +
     qkv_b and (b) do = g.proj_w on ``wa_linear``, (c) the attention part in
-    one kernel (:func:`window_attention_bwd_core`), (d) ``d_proj_w = g^T.o``
-    and ``d_qkv_w = dqkv^T.x`` in torch.matmul (f32; XLA dots in the JAX
-    package), (e) the bias gradients as column sums (products with a ones
-    vector, which run faster than ``sum(0)`` over these tall columns), (f)
-    dx = dqkv.qkv_w on ``wa_linear``, stored in x's dtype.  Raises above
-    the kernel's limits (:func:`check_window_bwd_shape`)."""
+    one kernel (:func:`window_attention_bwd_core`), (d) the weight and bias
+    gradients in another (:func:`window_attention_wgrad`), (e) dx =
+    dqkv.qkv_w on ``wa_linear``, stored in x's dtype.  (b) and (e) read a
+    transposed copy of their weight (``wa_linear`` takes ``[N, K]``).
+    Raises above the kernel's limits (:func:`check_window_bwd_shape`)."""
     if not _on_cuda(x, qkv_w, qkv_b, proj_w, addmask, g):
         return window_attention_bwd_plain(x, qkv_w, qkv_b, proj_w, addmask, g,
                                           num_heads, scale)
     check_window_bwd_shape(x.shape[1], x.shape[2] // num_heads)
     return _window_attention_bwd(x, qkv_w, qkv_b, proj_w, addmask, g,
                                  num_heads, scale, linear,
-                                 window_attention_bwd_core)
+                                 window_attention_bwd_core,
+                                 window_attention_wgrad)
 
 
 class WindowAttentionFused(torch.autograd.Function):

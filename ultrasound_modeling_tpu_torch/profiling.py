@@ -29,12 +29,14 @@ and K5's cores and K3's forward), K4's per-window forward core
 (``fa_bwd_*``), the port's GEMMs on the 128 x 128 schedule
 (``linear_wgmma_kernel``: ``tb_linear`` / ``wa_linear``) and on the
 narrow one (``linear_narrow_kernel``: ``wa_linear`` at the Swin's
-widths), K2 (``gfn_*``: forward, backward and its column reduce) and the
+widths), K2 (``gfn_*``: forward, backward and its column reduce), the
 attention kernel of K4's backward (``wa_bwd_*``, with its d_addmask
-reduce), give the device time of K4's whole backward (the kernels under
-autograd's ``WindowAttentionFusedBackward`` node) and of the GEMMs in it
-(``k4_bwd_gemm_ms``: its three ``wa_linear`` calls), and list the three
-largest kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
+reduce: ``k4_bwd_core_ms``) and its weight and bias gradients
+(``wa_wgrad_*``, with its reduce of the row runs: ``k4_bwd_wgrad_ms``),
+give the device time of K4's whole backward (the kernels under
+autograd's ``WindowAttentionFusedBackward`` node: ``k4_bwd_ms``) and of
+the GEMMs in it (``k4_bwd_gemm_ms``: its three ``wa_linear`` calls), and
+list the three largest kernels.  Weights are random from seed 0, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ GROUPS = {"attention_fwd": ("attention_fwd_kernel",),
           "k2": ("gfn_forward_kernel", "gfn_backward_kernel",
                  "gfn_reduce_kernel"),
           "k4_bwd_core": ("wa_bwd_kernel", "wa_bwd_reduce_kernel"),
+          "k4_bwd_wgrad": ("wa_wgrad_kernel", "wa_wgrad_reduce_kernel"),
           "k4_window_core": ("wa_window_fwd_kernel",),
           "narrow_gemm": ("linear_narrow_kernel",)}
 # the GEMM kernels (both schedules) whose time inside K4's backward is
