@@ -53,6 +53,7 @@ import torch
 
 from ultrasound_modeling_tpu_torch.config import default_config, from_toml
 from ultrasound_modeling_tpu_torch.device import resolve_device
+from ultrasound_modeling_tpu_torch.utils.tracing import span
 
 # the model families this port builds: all five
 PORTED = ("transunet", "vit", "swin", "resnest_unet", "mobileunet")
@@ -156,11 +157,19 @@ def make_forward(model: Callable, device: torch.device
                  ) -> Callable[[np.ndarray], np.ndarray]:
     """``x [B, H, W, C]`` float32 numpy -> float32 numpy probabilities,
     through ``model`` (a module or any ``x -> probs`` on tensors) on
-    ``device``."""
+    ``device``.  Under a profiler each call is the span ``serve.batch``
+    (``utils.tracing``) of three: ``serve.h2d`` (the frames to the device),
+    ``serve.forward`` (the forward enqueued) and ``serve.d2h`` (the wait
+    for it and the copy back)."""
     def forward(x: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-            return model(xt.to(device)).float().cpu().numpy()
+        with torch.inference_mode(), span("serve.batch"):
+            with span("serve.h2d"):
+                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)
+                                      ).to(device)
+            with span("serve.forward"):
+                probs = model(xt).float()
+            with span("serve.d2h"):
+                return probs.cpu().numpy()
     return forward
 
 

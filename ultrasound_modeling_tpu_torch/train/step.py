@@ -26,6 +26,7 @@ from ultrasound_modeling_tpu_torch.train import metrics as metrics_mod
 from ultrasound_modeling_tpu_torch.train.optim import Adam
 from ultrasound_modeling_tpu_torch.utils.checkpoint import (
     from_flax, random_flax_variables)
+from ultrasound_modeling_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass
@@ -71,24 +72,35 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
     """``(state, x, y_scalar, lr) -> (loss, probs)``, updating ``state`` in
     place; ``y_scalar`` is the raw label image ``[B, H, W]``.  A non-zero
     ``l2_scale`` adds ``losses.l2_regularization`` of the model's kernels
-    to the loss (the ViT's 1e-5)."""
+    to the loss (the ViT's 1e-5).  Under a profiler each step is the span
+    ``train.step`` (``utils.tracing``) of four: ``train.augment``
+    (augmentation and ``label2vec``), ``train.forward`` (the forward, the
+    loss and the penalty), ``train.backward`` (``zero_grad`` and
+    ``backward``) and ``train.optim`` (the clip and the update)."""
     kernels = losses_mod.l2_kernels(model) if l2_scale else []
 
     def step_fn(state: TrainState, x: torch.Tensor, y_scalar: torch.Tensor,
                 lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        model.train()
-        if augment:
-            x, y_scalar = aug_mod.augment_batch(x, y_scalar, state.gen, flip)
-        y = labels_mod.label2vec(y_scalar, num_classes)
-        probs = model(x).float()
-        loss = loss_fn(y, probs)
-        if l2_scale:
-            loss = loss + losses_mod.l2_regularization(kernels, l2_scale)
-        state.opt.zero_grad()
-        loss.backward()
-        state.opt.step(lr)
-        state.step += 1
-        return loss.detach(), probs.detach()
+        with span("train.step"):
+            model.train()
+            with span("train.augment"):
+                if augment:
+                    x, y_scalar = aug_mod.augment_batch(x, y_scalar,
+                                                        state.gen, flip)
+                y = labels_mod.label2vec(y_scalar, num_classes)
+            with span("train.forward"):
+                probs = model(x).float()
+                loss = loss_fn(y, probs)
+                if l2_scale:
+                    loss = loss + losses_mod.l2_regularization(kernels,
+                                                               l2_scale)
+            with span("train.backward"):
+                state.opt.zero_grad()
+                loss.backward()
+            with span("train.optim"):
+                state.opt.step(lr)
+            state.step += 1
+            return loss.detach(), probs.detach()
 
     return step_fn
 
