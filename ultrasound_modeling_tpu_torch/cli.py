@@ -45,8 +45,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
-from typing import Callable, Optional
+import threading
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +155,80 @@ def build_serving_model(params_path: str, bf16: bool, device: torch.device,
     return _restore_model(mcfg, None, None, device, params=params_path)
 
 
+# bytes of frames in each chunk of a staged copy to the card: the host's copy
+# of one chunk into pinned memory runs while the card reads the chunk before.
+# On the H100's host a b64 batch (52.4 MB) crossed fastest in 16 MiB chunks,
+# both to the host's return and to the end of the DMA (1-64 MiB tried,
+# tests/test_torch_staging.py::test_copy_rates_on_the_card_host)
+STAGE_CHUNK_BYTES = 16 << 20
+
+# calls of make_forward's closures through pinned staging (``staged``) and on
+# the CPU path (``plain``), and page-locked allocations of a staging buffer
+# (``grown``)
+STAGING = {"staged": 0, "grown": 0, "plain": 0}
+
+
+def reset_staging_counts() -> None:
+    for k in STAGING:
+        STAGING[k] = 0
+
+
+def chunk_rows(rows: int, row_bytes: int) -> List[Tuple[int, int]]:
+    """``(start, stop)`` ranges that split ``rows`` rows of ``row_bytes``
+    each into chunks of at most :data:`STAGE_CHUNK_BYTES` (a row larger than
+    that is a chunk of its own), in order."""
+    step = max(1, STAGE_CHUNK_BYTES // max(1, row_bytes))
+    return [(a, min(a + step, rows)) for a in range(0, rows, step)]
+
+
+class _Staging:
+    """The page-locked float32 buffer one CUDA closure of
+    :func:`make_forward` copies its frames through, sized to the largest
+    batch seen and reused; a smaller batch takes its front.  ``done`` marks
+    the end of the last copy out of it, which the next call waits for
+    before it writes; ``lock`` keeps two threads' calls from interleaving."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.buf: Optional[torch.Tensor] = None
+        self.done = torch.cuda.Event()
+        self.lock = threading.Lock()
+
+    def to_device(self, x: np.ndarray) -> torch.Tensor:
+        """``x`` on the card, copied chunk by chunk: the host copies a chunk
+        into the buffer, then queues its DMA on the current stream and goes
+        on to the next, so that the forward's kernels queue behind the
+        last one."""
+        src = torch.from_numpy(x)
+        xt = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        n = src.numel()
+        row_bytes = src.element_size() * math.prod(src.shape[1:])
+        with self.lock:
+            self.done.synchronize()
+            if self.buf is None or self.buf.numel() < n:
+                self.buf = torch.empty(n, dtype=torch.float32, pin_memory=True)
+                STAGING["grown"] += 1
+            stage = self.buf[:n].view(src.shape)
+            stream = torch.cuda.current_stream(self.device)
+            try:
+                for a, b in chunk_rows(len(src), row_bytes):
+                    stage[a:b].copy_(src[a:b])
+                    xt[a:b].copy_(stage[a:b], non_blocking=True)
+            finally:
+                self.done.record(stream)
+            STAGING["staged"] += 1
+        return xt
+
+    def to_host(self, probs: torch.Tensor) -> np.ndarray:
+        """``probs`` in a page-locked tensor of its own (torch's caching host
+        allocator reuses the blocks of answers the callers have dropped), as
+        numpy: the caller owns every answer."""
+        out = torch.empty_like(probs, device="cpu", pin_memory=True)
+        out.copy_(probs, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out.numpy()
+
+
 def make_forward(model: Callable, device: torch.device
                  ) -> Callable[[np.ndarray], np.ndarray]:
     """``x [B, H, W, C]`` float32 numpy -> float32 numpy probabilities,
@@ -160,16 +236,30 @@ def make_forward(model: Callable, device: torch.device
     ``device``.  Under a profiler each call is the span ``serve.batch``
     (``utils.tracing``) of three: ``serve.h2d`` (the frames to the device),
     ``serve.forward`` (the forward enqueued) and ``serve.d2h`` (the wait
-    for it and the copy back)."""
+    for it and the copy back).
+
+    On a CUDA device the frames cross through a page-locked buffer the
+    closure keeps (:class:`_Staging`), in chunks of
+    :data:`STAGE_CHUNK_BYTES` whose host copies overlap their DMA, and the
+    answer comes back into page-locked memory; on the CPU the frames are
+    wrapped and copied as they are.  :data:`STAGING` counts both."""
+    staging = _Staging(device) if device.type == "cuda" else None
+
     def forward(x: np.ndarray) -> np.ndarray:
         with torch.inference_mode(), span("serve.batch"):
             with span("serve.h2d"):
-                xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)
-                                      ).to(device)
+                x = np.ascontiguousarray(x, np.float32)
+                if staging is None:
+                    STAGING["plain"] += 1
+                    xt = torch.from_numpy(x).to(device)
+                else:
+                    xt = staging.to_device(x)
             with span("serve.forward"):
                 probs = model(xt).float()
             with span("serve.d2h"):
-                return probs.cpu().numpy()
+                if staging is None:
+                    return probs.cpu().numpy()
+                return staging.to_host(probs)
     return forward
 
 
