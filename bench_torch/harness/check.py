@@ -31,23 +31,20 @@ import numpy as np
 import torch
 
 from reference.numerics import Numerics
-from reference.swin import SwinSegmenter
-from reference.train import follow
-from reference.transunet import TransUNet
+from reference.train import follow, train_settings
 
-FAMILIES = {"transunet": TransUNet, "swin": SwinSegmenter}
 CONTROL = {"bfloat16": "fp8", "float32": "tf32"}
 REF_BLOCK = 16          # frames a reference forward
 
 
-def reference_model(cfg: dict, mode: str, device) -> torch.nn.Module:
-    """The reference of ``cfg``'s family, on ``device`` (``meta``: shapes
-    only, for the weight draw)."""
-    cls = FAMILIES[cfg["model"]["name"]]
+def reference_model(cell, mode: str, device) -> torch.nn.Module:
+    """The reference of ``cell``'s family (``reference/<family>.py``), on
+    ``device`` (``meta``: shapes only, for the weight draw)."""
+    cls, mcfg = cell.reference, cell.config["model"]
     if torch.device(device).type == "meta":
         with torch.device("meta"):
-            return cls(cfg["model"], Numerics(mode))
-    return cls(cfg["model"], Numerics(mode)).to(device)
+            return cls(mcfg, Numerics(mode))
+    return cls(mcfg, Numerics(mode)).to(device)
 
 
 def control_mode(cfg: dict) -> str:
@@ -55,9 +52,9 @@ def control_mode(cfg: dict) -> str:
 
 
 @torch.no_grad()
-def reference_outputs(cfg: dict, mode: str, weights, frames: Sequence[np.ndarray],
+def reference_outputs(cell, mode: str, weights, frames: Sequence[np.ndarray],
                       device) -> List[np.ndarray]:
-    model = reference_model(cfg, mode, device).eval()
+    model = reference_model(cell, mode, device).eval()
     model.load_state_dict(weights, strict=True)
     out = []
     with model.nx.active():
@@ -72,6 +69,10 @@ def reference_outputs(cfg: dict, mode: str, weights, frames: Sequence[np.ndarray
 
 def worst_frame_rms(got: Sequence[np.ndarray], want: Sequence[np.ndarray]
                     ) -> float:
+    """An empty sample reads ``inf``: a window that kept no answer proves
+    nothing correct."""
+    if len(got) == 0:
+        return float("inf")
     worst = 0.0
     for a, b in zip(got, want, strict=True):
         if a is None or a.shape != b.shape:     # never answered, or malformed
@@ -83,15 +84,16 @@ def worst_frame_rms(got: Sequence[np.ndarray], want: Sequence[np.ndarray]
     return worst
 
 
-def serve_readings(cfg: dict, weights, samples: List[Tuple[np.ndarray, np.ndarray]],
+def serve_readings(cell, weights, samples: List[Tuple[np.ndarray, np.ndarray]],
                    device, control: bool = False) -> Dict[str, float]:
     """``samples``: (frames, served probabilities).  The program's reading
     and, with ``control``, the control's."""
     frames = [x for x, _ in samples]
-    ref = reference_outputs(cfg, "f32", weights, frames, device)
+    ref = reference_outputs(cell, "f32", weights, frames, device)
     out = {"prob_rms_worst": worst_frame_rms([p for _, p in samples], ref)}
     if control:
-        ctl = reference_outputs(cfg, control_mode(cfg), weights, frames, device)
+        ctl = reference_outputs(cell, control_mode(cell.config), weights,
+                                frames, device)
         out["control.prob_rms_worst"] = worst_frame_rms(ctl, ref)
     return out
 
@@ -122,12 +124,16 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
                                     moving)}
 
 
-def train_reference(cfg: dict, mode: str, weights, batches, lrs,
+def train_reference(cell, mode: str, weights, batches, lrs,
                     gens: Tuple[torch.Generator, torch.Generator], device
                     ) -> dict:
-    model = reference_model(cfg, mode, device)
+    """The reference step under the configuration's own train settings
+    (``reference.train.train_settings``, which refuses by name what it has
+    no plain version of)."""
+    settings = train_settings(cell.config)
+    model = reference_model(cell, mode, device)
     model.load_state_dict(weights, strict=True)
-    out = follow(model, batches, lrs, gens, model.nx)
+    out = follow(model, batches, lrs, gens, model.nx, settings)
     del model
     return out
 

@@ -1,8 +1,9 @@
-"""One run of a cell: set-up, the measured window, the traced stretch (with
-``--trace 1``), then the check against the reference once the program's
-state is freed.  Each traffic kind has its flow here; what a run measured
-goes into an :class:`Outcome`, from which the metric readers take their
-numbers.
+"""One run of a cell: set-up, the measured window, the stretch traced on
+the device alone (every run on a card), the stretch with the host's ops
+(with ``--trace 1``), then the check against the reference once the
+program's state is freed.  Each traffic kind has its flow here; what a run
+measured goes into an :class:`Outcome`, from which the metric readers take
+their numbers.
 
 Set-up builds exactly what the window drives and warms its shapes: the
 first call of a shape pays the kernels' load (and, in a fresh checkout,
@@ -42,6 +43,8 @@ class Outcome:
     attempted: int = 0
     failed: int = 0
     peak_bytes: int = 0
+    card_frames: int = 0         # frames of the stretch traced on the device
+    card_busy_s: float = 0.0     # alone, and the device's busy time in it
     trace: Optional[trace.TraceSummary] = None
     numbers: Dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -60,8 +63,20 @@ def _free(device):
         torch.cuda.empty_cache()
 
 
-def weights_for(cfg: dict, seed: int, device) -> dict:
-    shapes = check.reference_model(cfg, "f32", "meta")
+def _traced(out: Outcome, device, stretch: Callable[[], int], traced: bool,
+            cell) -> None:
+    """After the window: ``stretch`` (which returns the frames it ran)
+    traced on the device alone where a card is, for the device's busy time
+    per frame; with ``--trace 1`` again with the host's ops."""
+    alone = trace.device_only(device, stretch)
+    if alone is not None:
+        out.card_frames, out.card_busy_s = alone[3], alone[1]
+    if traced:
+        out.trace = trace.measure(device, stretch, cell.trace_ops(), alone)
+
+
+def weights_for(cell, seed: int, device) -> dict:
+    shapes = check.reference_model(cell, "f32", "meta")
     return seeded_state_dict(shapes, derive(seed, WEIGHTS), device)
 
 
@@ -80,7 +95,7 @@ def run_closed(cell, seed: int, seconds: float, traced: bool, device, t0: float,
     mix, cfg = cell.traffic, cell.config
     bs, pool_n = int(mix["batch"]), int(mix["pool_batches"])
     out = Outcome("closed")
-    weights = weights_for(cfg, seed, device)
+    weights = weights_for(cell, seed, device)
     model = program.build_model(cfg, weights, device)
     forward = program.serving_forward(model, device)
     if fault is not None:
@@ -108,18 +123,19 @@ def run_closed(cell, seed: int, seconds: float, traced: bool, device, t0: float,
         i += 1
     out.window_s = time.perf_counter() - start
     out.attempted, out.frames = i, i * bs
-    if traced:
-        def stretch():
-            nonlocal i
-            t1 = time.perf_counter()
-            while time.perf_counter() - t1 < TRACE_S:
-                forward(pool[int(order[i])])
-                i += 1
-        out.trace = trace.measure(device, stretch, cell.trace_ops())
+
+    def stretch():
+        nonlocal i
+        n, t1 = 0, time.perf_counter()
+        while time.perf_counter() - t1 < TRACE_S:
+            forward(pool[int(order[i])])
+            i, n = i + 1, n + 1
+        return n * bs
+    _traced(out, device, stretch, traced, cell)
     out.peak_bytes = _peak(device)
     del model, forward
     _free(device)
-    out.numbers = check.serve_readings(cfg, weights, samples, device)
+    out.numbers = check.serve_readings(cell, weights, samples, device)
     return out
 
 
@@ -175,7 +191,8 @@ def run_train(cell, seed: int, seconds: float, traced: bool, device, t0: float,
     mix, cfg = cell.traffic, cell.config
     bs, nb = int(mix["batch"]), int(mix["batches"])
     out = Outcome("train")
-    weights = weights_for(cfg, seed, device)
+    check.train_settings(cfg)       # refuses, before set-up, what it cannot follow
+    weights = weights_for(cell, seed, device)
     data = _inputs(cfg, bs * nb, seed, device)
     gens = tuple(torch.Generator(device=device).manual_seed(derive(seed, s))
                  for s in (AUG, DROP))
@@ -195,19 +212,21 @@ def run_train(cell, seed: int, seconds: float, traced: bool, device, t0: float,
     _sync(device)
     out.window_s = time.perf_counter() - start
     out.attempted, out.frames = steps, steps * bs
-    if traced:
-        def stretch():
-            t1 = time.perf_counter()
-            while time.perf_counter() - t1 < TRACE_S:
-                tr_.run_step(bs)
-        out.trace = trace.measure(device, stretch, cell.trace_ops())
+
+    def stretch():
+        n, t1 = 0, time.perf_counter()
+        while time.perf_counter() - t1 < TRACE_S:
+            tr_.run_step(bs)
+            n += 1
+        return n * bs
+    _traced(out, device, stretch, traced, cell)
     out.peak_bytes = _peak(device)
     # the window's object, past its steps, repeats the followed steps
     _rewind(tr_, weights, seed)
     after = _followed(tr_, bs)
     del tr_
     _free(device)
-    ref = reference_steps(cfg, "f32", weights, seed, bs, nb, first["lrs"],
+    ref = reference_steps(cell, "f32", weights, seed, bs, nb, first["lrs"],
                           device)
     firsts, afters = (check.train_numbers(f, ref) for f in (first, after))
     out.numbers = {k: max(firsts[k], afters[k]) for k in firsts}
@@ -216,16 +235,18 @@ def run_train(cell, seed: int, seconds: float, traced: bool, device, t0: float,
     return out
 
 
-def reference_steps(cfg: dict, mode: str, weights, seed: int, bs: int,
+def reference_steps(cell, mode: str, weights, seed: int, bs: int,
                     nb: int, lrs, device) -> dict:
     """The reference over the first ``len(lrs)`` batches of the cursor
-    (of ``nb``), from the seed's weights, inputs and generators."""
-    x, y = _inputs(cfg, bs * nb, seed, device)
+    (of ``nb``), from the seed's weights, inputs and generators, under the
+    configuration's train settings."""
+    x, y = _inputs(cell.config, bs * nb, seed, device)
     batches = [(x[i * bs:(i + 1) * bs], y[i * bs:(i + 1) * bs])
                for i in range(len(lrs))]
     gens = tuple(torch.Generator(device=device).manual_seed(derive(seed, s))
                  for s in (AUG, DROP))
-    return check.train_reference(cfg, mode, weights, batches, lrs, gens, device)
+    return check.train_reference(cell, mode, weights, batches, lrs, gens,
+                                 device)
 
 
 def control_numbers(cell, seed: int, device) -> Dict[str, float]:
@@ -233,22 +254,22 @@ def control_numbers(cell, seed: int, device) -> Dict[str, float]:
     reference one precision down) against the reference, at the cell's
     size: its first three steps, or four of its device batches."""
     cfg, mix = cell.config, cell.traffic
-    weights = weights_for(cfg, seed, device)
+    weights = weights_for(cell, seed, device)
     mode = check.control_mode(cfg)
     if mix["kind"] == "train":
         bs, nb = int(mix["batch"]), int(mix["batches"])
         tc = cfg["train"]
         lrs = [tc["learning_rate"] * tc["lr_values"][0]] * FOLLOWED
-        ref = reference_steps(cfg, "f32", weights, seed, bs, nb, lrs, device)
-        ctl = reference_steps(cfg, mode, weights, seed, bs, nb, lrs, device)
+        ref = reference_steps(cell, "f32", weights, seed, bs, nb, lrs, device)
+        ctl = reference_steps(cell, mode, weights, seed, bs, nb, lrs, device)
         return check.train_numbers(ctl, ref)
     bs = int(mix["batch"])
     x, _ = _inputs(cfg, 4 * bs, seed, device)
     frames = list(x.cpu().numpy().reshape(4, bs, *x.shape[1:]))
     del x
     _free(device)
-    ref = check.reference_outputs(cfg, "f32", weights, frames, device)
-    ctl = check.reference_outputs(cfg, mode, weights, frames, device)
+    ref = check.reference_outputs(cell, "f32", weights, frames, device)
+    ctl = check.reference_outputs(cell, mode, weights, frames, device)
     return {"prob_rms_worst": check.worst_frame_rms(ctl, ref)}
 
 

@@ -16,6 +16,15 @@ def frames_per_s(ctx, kind: str) -> Optional[float]:
     return o.frames / o.window_s
 
 
+def device_frames_per_s(ctx) -> Optional[float]:
+    """Frames over the device's busy time in the stretch traced on the
+    device alone."""
+    o = ctx.outcome
+    if o.card_frames <= 0 or o.card_busy_s <= 0:
+        return None
+    return o.card_frames / o.card_busy_s
+
+
 def mfu(ctx, kind: str, passes: int) -> Optional[float]:
     """Share (%) of the card's peak that the configuration's products take
     at the window's frame rate: ``passes`` x ``flops_per_frame`` (3 for a

@@ -14,8 +14,10 @@
 
 Recording the host's ops slows the host several times over on a
 launch-bound path (a Swin train step's ~1,300 launches), so the busy and
-idle time come from a stretch traced on the device alone, and the rest
-from a second stretch with the host's ops (:func:`measure`).
+idle time come from a stretch traced on the device alone
+(:func:`device_only`, which every run on a card makes: its frames over its
+busy time are the end-to-end ``device_frames_per_s``), and the rest from a
+second stretch with the host's ops (:func:`measure`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import heapq
-from typing import Callable, Dict, Iterator, List, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 MARK = "bench::traced_window"
 
@@ -185,16 +187,29 @@ def _profiled(device, host: bool) -> Iterator[dict]:
     out["events"] = prof.events()
 
 
-def measure(device, stretch: Callable[[], None],
-            ops_of_interest: Sequence[str]) -> TraceSummary:
-    """Run ``stretch`` twice: traced on the device alone, which costs the
-    host little, for the busy and idle time and the device's largest
-    operations; then with the host's ops and their shapes recorded, which
-    slows the host, for the device time of the kernels under each op of
-    ``ops_of_interest`` and the host op running in each idle gap."""
+def device_only(device, stretch: Callable[[], int]
+                ) -> Optional[Tuple[float, float, list, int]]:
+    """Run ``stretch`` traced on the device alone, which costs the host
+    little: (window_s, busy_s, top device ops, the frames ``stretch``
+    returns that it ran).  None where no card is."""
+    if device.type != "cuda":
+        return None
     with _profiled(device, host=False) as p:
-        stretch()
-    window_s, busy_s, device_ops = device_summary(p["events"])
+        frames = stretch()
+    return (*device_summary(p["events"]), frames)
+
+
+def measure(device, stretch: Callable[[], int],
+            ops_of_interest: Sequence[str], alone=None) -> TraceSummary:
+    """The traced stretches of a ``--trace 1`` run: ``alone``, the result of
+    :func:`device_only` (run here where it is not given), for the busy and
+    idle time and the device's largest operations; then ``stretch`` again
+    with the host's ops and their shapes recorded, which slows the host,
+    for the device time of the kernels under each op of
+    ``ops_of_interest`` and the host op running in each idle gap."""
+    if alone is None:
+        alone = device_only(device, stretch)
+    window_s, busy_s, device_ops, _ = alone
     with _profiled(device, host=True) as p:
         stretch()
     host = summarize(p["events"], ops_of_interest)

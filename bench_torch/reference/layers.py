@@ -9,7 +9,7 @@ program's state dict, so one set of seeded weights loads into both.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -156,6 +156,18 @@ def avg_pool2(x):
 
 def softmax_last(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=-1)
+
+
+def l2_kernels(model: nn.Module, attention: type) -> List[nn.Parameter]:
+    """The weights the original's Keras L2 rule regularizes: the kernels of
+    its conv, transposed-conv and dense layers, the MLPs' ``fc1`` / ``fc2``
+    among them; not the projections of an ``attention`` module (its query,
+    key, value and out, or qkv and proj, are the attention's own kernels),
+    not biases, norm scales or tables."""
+    own = {id(m) for a in model.modules() if isinstance(a, attention)
+           for m in a.children()}
+    return [m.weight for m in model.modules()
+            if isinstance(m, (Conv, ConvTranspose, Linear)) and id(m) not in own]
 
 
 def optional_pad(x: torch.Tensor, mh: int, mw: int) -> torch.Tensor:

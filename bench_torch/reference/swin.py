@@ -19,13 +19,14 @@ blocks run, as the program does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from .layers import Conv, ConvTranspose, LayerNorm, Linear, gelu, optional_pad
+from .layers import (Conv, ConvTranspose, LayerNorm, Linear, gelu, l2_kernels,
+                     optional_pad)
 from .numerics import Numerics
 
 LN_EPS = 1e-5
@@ -234,6 +235,9 @@ class SwinSegmenter(nn.Module):
             if isinstance(m, DropPath):
                 m.generator = gen
 
+    def l2_weights(self) -> List[nn.Parameter]:
+        return l2_kernels(self, WindowAttention)
+
     def forward(self, x):
         y, features = self.backbone(x)
         for i, skip in enumerate(reversed(features)):
@@ -243,3 +247,5 @@ class SwinSegmenter(nn.Module):
         logits = self.head(y)[:, :self.img_size[0], :self.img_size[1]]
         return torch.softmax(logits, dim=-1)
 
+
+MODEL = SwinSegmenter

@@ -1,14 +1,25 @@
 """Plain reference of the train step the original drivers run
-(``DataAugs.py:82-102``, ``MainNumpy.py``, ``VisionTransformer.py:235-245``):
+(``DataAugs.py:82-102``, ``MainNumpy.py``, ``VisionTransformer.py:235-245``),
+under the configuration's own train settings (:func:`train_settings`):
 
 augmentation of each sample (with r, t ~ U{0..100000}: brain erosion by
 ``t % 7 + 2`` pixels if ``r % 3``, ``r % 3`` rectangle cutouts, a shift of
 up to (30, 12) pixels with zero fill if ``t % 2``, N(0, 1) / 5000 noise if
 ``t % 3``), the soft labels' class map (thresholds 0.95 / 1.05), the
-forward in train mode, categorical cross-entropy with label smoothing 0.1
-on probabilities clipped to [1e-7, 1 - 1e-7] summed over pixels and
-divided by the batch, backward, a global-norm clip at 1.0 and Adam (b1
-0.9, b2 0.999, eps 1e-8, bias correction), ``p -= lr * update``.
+forward in train mode, categorical cross-entropy with the configuration's
+label smoothing on probabilities clipped to [1e-7, 1 - 1e-7] summed over
+pixels and divided by the batch, plus ``l2_regularization`` times the sum
+of squares of the model's ``l2_weights()`` (Keras's kernel regularizer),
+backward, a global-norm clip at ``clip_global_norm`` (none at 0 or null)
+and Adam (b1 0.9, b2 0.999, eps 1e-8, bias correction), ``p -= lr *
+update``.
+
+A setting this step has no plain version of is refused by name
+(``NotImplementedError``), never passed over: another loss, class
+factors, decoupled weight decay, a bf16 first moment, the flip or no
+augmentation, and a model trained by another optimizer
+(:data:`OTHER_OPTIMIZERS`, by ``model.name``, the key the program's
+optimizer is chosen by).
 
 The augmentation draws its parameters from a ``torch.Generator`` on the
 batch's device in the order the program draws them, so that the same seed
@@ -17,12 +28,52 @@ gives the same augmented batch on both sides.
 
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 MAX_ERODE = 8
+
+# models whose original trains with an optimizer other than this Adam
+OTHER_OPTIMIZERS = {"mobileunet": "a dual-rate Adam (b1 0.5, no clip)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    """The train settings the reference step follows."""
+    label_smoothing: float
+    clip_global_norm: Optional[float]       # None: no clip
+    l2_regularization: float
+
+
+def train_settings(cfg: dict) -> Settings:
+    """``cfg``'s train settings, refusing by name each one the reference
+    has no plain version of."""
+    name = cfg["model"]["name"]
+    if name in OTHER_OPTIMIZERS:
+        raise NotImplementedError(
+            f"model.name = {name!r} trains with {OTHER_OPTIMIZERS[name]}: "
+            f"the reference step has no plain version of it")
+    tc, data = cfg["train"], cfg.get("data", {})
+    refused = {"train.loss": tc["loss"] != "cce_smooth",
+               "train.class_factor": tc.get("class_factor") is not None,
+               "train.weight_decay": bool(tc.get("weight_decay", 0.0)),
+               "train.adam_mu_dtype": tc.get("adam_mu_dtype") is not None,
+               "data.aug_flip": bool(data.get("aug_flip", False)),
+               "data.augment": not data.get("augment", True)}
+    for key, bad in refused.items():
+        if bad:
+            section, name = key.split(".")
+            value = (tc if section == "train" else data)[name]
+            raise NotImplementedError(
+                f"{key} = {value!r}: the reference step has no plain version "
+                f"of it")
+    clip = tc["clip_global_norm"]
+    return Settings(float(tc["label_smoothing"]),
+                    float(clip) if clip else None,
+                    float(tc["l2_regularization"]))
 
 
 def _ps(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -100,9 +151,10 @@ def cce_smooth(y: torch.Tensor, probs: torch.Tensor,
 
 
 class Adam:
-    """Global-norm clip, then Adam with bias correction, leaf by leaf."""
+    """Global-norm clip (none where ``clip`` is None), then Adam with bias
+    correction, leaf by leaf."""
 
-    def __init__(self, params: List[torch.Tensor], clip: float = 1.0,
+    def __init__(self, params: List[torch.Tensor], clip: Optional[float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params, self.clip = params, clip
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -114,7 +166,7 @@ class Adam:
     def step(self, grads: List[torch.Tensor], lr: float) -> List[torch.Tensor]:
         """Applies one update; returns the gradients after the clip."""
         norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).float()
-        if norm >= self.clip:
+        if self.clip is not None and norm >= self.clip:
             grads = [g * (self.clip / norm) for g in grads]
         self.count += 1
         b1, b2, n = self.b1, self.b2, self.count
@@ -126,26 +178,38 @@ class Adam:
         return grads
 
 
-def follow(model: torch.nn.Module, batches, lrs, seed_gens, nx
-           ) -> Dict[str, object]:
-    """Run the reference step over ``batches`` (``(x, soft labels)``) at
-    learning rates ``lrs`` from ``model``'s current weights.
-    ``seed_gens = (augmentation generator, stochastic-depth generator)``.
+def follow(model: torch.nn.Module, batches, lrs, seed_gens, nx,
+           settings: Settings) -> Dict[str, object]:
+    """Run the reference step under ``settings`` over ``batches`` (``(x,
+    soft labels)``) at learning rates ``lrs`` from ``model``'s current
+    weights.  ``seed_gens = (augmentation generator, stochastic-depth
+    generator)``; the latter reaches the model only where it has
+    ``set_generator``.
     Returns each step's loss, each leaf's gradient norm at the first step
     (after the clip, as Adam receives it) and each leaf's change in norm
     over all the steps, keyed by parameter name."""
     aug_gen, drop_gen = seed_gens
     model.train()
-    model.set_generator(drop_gen)
+    if hasattr(model, "set_generator"):
+        model.set_generator(drop_gen)
+    l2 = settings.l2_regularization
+    if l2 and not hasattr(model, "l2_weights"):
+        raise NotImplementedError(
+            f"train.l2_regularization = {l2!r}: {type(model).__name__} names "
+            f"no l2_weights()")
+    kernels = model.l2_weights() if l2 else []
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     start = [p.detach().clone() for p in params]
-    opt = Adam([p.data for p in params])
+    opt = Adam([p.data for p in params], settings.clip_global_norm)
     losses, first_grads = [], None
     with nx.active():
         for (x, y), lr in zip(batches, lrs):
             xa, ya = augment(x, y, aug_gen)
-            loss = cce_smooth(class_map(ya), model(xa))
+            loss = cce_smooth(class_map(ya), model(xa),
+                              settings.label_smoothing)
+            if l2:
+                loss = loss + l2 * sum((w * w).sum() for w in kernels)
             grads = torch.autograd.grad(loss, params)
             clipped = opt.step(list(grads), lr)
             losses.append(float(loss.detach()))

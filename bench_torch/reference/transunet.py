@@ -249,3 +249,6 @@ class TransUNet(nn.Module):
         emb = emb.reshape(emb.shape[0], self.grid[0] * self.grid[1],
                           self.hidden)
         return self.decoder(self.encoder(emb), features)
+
+
+MODEL = TransUNet

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from conftest import BENCH, ROOT, TINY_CELLS
-from harness import drive, faults
+from harness import check, drive, faults, trace
 from harness.cell import load_cell
 from harness.report import line
 from harness.drive import Outcome
@@ -30,7 +30,23 @@ def _run(root, name, fault=None, seconds=1.0):
     return run.run(cell, SEED, seconds, False, CPU, time.perf_counter(), fault)
 
 
-def test_loader_finds_a_new_cell_mix_config_and_metric_from_files(tiny_root):
+def _host_device_only(device, stretch):
+    """``trace.device_only`` where no card is: the stretch run, its host
+    time standing in for the device's busy time."""
+    t = time.perf_counter()
+    frames = stretch()
+    spent = time.perf_counter() - t
+    return spent, spent, [], frames
+
+
+@pytest.fixture
+def stand_in_card(monkeypatch):
+    monkeypatch.setattr(trace, "device_only", _host_device_only)
+    monkeypatch.setattr(drive, "TRACE_S", 0.2)
+
+
+def test_loader_finds_a_new_cell_mix_config_and_metric_from_files(
+        tiny_root, stand_in_card):
     # one more metric, added as a file and an entry alone
     (tiny_root / "bench_torch" / "metrics" / "frames_seen.py").write_text(
         "def read(ctx):\n    return ctx.outcome.frames or None\n")
@@ -45,21 +61,26 @@ def test_loader_finds_a_new_cell_mix_config_and_metric_from_files(tiny_root):
     assert set(cell.limits) == {"prob_rms_worst"}
     out = _run(tiny_root, "tiny_t.serve")
     assert out["metrics"]["frames_seen"]["value"] > 0
-    assert {"serve_frames_per_s", "setup_s"} <= set(out["metrics"])
+    assert {"device_frames_per_s", "setup_s"} <= set(out["metrics"])
 
 
 @pytest.mark.parametrize("cell", [c[0] for c in TINY_CELLS])
-def test_sound_run_is_correct(tiny_root, cell):
+def test_sound_run_is_correct(tiny_root, cell, stand_in_card):
     out = _run(tiny_root, cell)
     assert out["correct"], out["checks"]
     assert out["failed"] == 0 and out["attempted"] > 0
     assert list(out)[-1] == "checks"
     for c in out["checks"].values():
         assert c["value"] is not None and c["value"] <= c["limit"]
-    kind = load_cell(tiny_root, cell).traffic["kind"]
-    rate = {"closed": "serve_frames_per_s",
-            "train": "train_frames_per_s"}[kind]
-    assert out["metrics"][rate]["value"] > 0
+    assert out["metrics"]["device_frames_per_s"]["value"] > 0
+    assert out["info"]["frames"] > 0 and out["info"]["window_s"] > 0
+
+
+def test_without_a_card_the_device_rate_is_left_out(tiny_root):
+    out = _run(tiny_root, "tiny_t.serve")
+    assert out["correct"], out["checks"]
+    assert "device_frames_per_s" not in out["metrics"]
+    assert "setup_s" in out["metrics"]
 
 
 FAULTS = [(cell, name) for cell, _, mix, _ in TINY_CELLS
@@ -71,6 +92,19 @@ def test_fault_makes_correct_false(tiny_root, cell, fault):
     kind = "train" if cell.endswith("train") else "serve"
     out = _run(tiny_root, cell, faults.for_kind(kind)[fault])
     assert not out["correct"], out["checks"]
+
+
+def test_an_empty_sample_is_not_correct():
+    assert check.worst_frame_rms([], []) == float("inf")
+
+
+@pytest.mark.parametrize("fault", [None, "answer_altered"])
+def test_a_window_that_kept_no_answer_is_not_correct(tiny_root, fault):
+    # 1e-4 s ends before the window's first keep time: nothing is compared
+    out = _run(tiny_root, "tiny_t.serve",
+               fault and faults.for_kind("serve")[fault], seconds=1e-4)
+    assert not out["correct"], out["checks"]
+    assert out["checks"]["prob_rms_worst"]["value"] is None
 
 
 def test_rewound_trainer_repeats_its_first_steps(tiny_root):

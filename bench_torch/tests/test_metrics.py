@@ -7,7 +7,9 @@ import math
 import pytest
 
 from conftest import ROOT
-from harness import trace, work
+from harness import readers, trace, work
+from harness.drive import Outcome
+from harness.report import Context
 
 
 @pytest.mark.parametrize("intervals, busy, gap_total", [
@@ -21,6 +23,17 @@ def test_busy_is_the_union_of_device_intervals(intervals, busy, gap_total):
     gaps = trace.gaps(intervals, 0, 100)
     assert sum(b - a for a, b in gaps) == pytest.approx(gap_total)
     assert 1 - busy / 100 >= 0
+
+
+@pytest.mark.parametrize("frames, busy, rate", [
+    (640, 0.25, 2560.0), (320, 0.5, 640.0),
+    (0, 0.0, None),                          # no stretch traced on a card
+])
+def test_device_rate_is_frames_over_the_busy_time(frames, busy, rate):
+    o = Outcome("closed", window_s=51.0, frames=99_000, card_frames=frames,
+                card_busy_s=busy)
+    got = readers.device_frames_per_s(Context(None, o))
+    assert got == (rate if rate is None else pytest.approx(rate))
 
 
 class _Ev:

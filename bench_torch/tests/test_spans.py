@@ -94,7 +94,7 @@ def test_a_gap_under_a_span_alone_is_filed_under_the_span():
     assert idle["host"] == pytest.approx(25e-6)                  # 45..70
 
 
-def _cpu_measure(device, stretch, ops_of_interest):
+def _cpu_measure(device, stretch, ops_of_interest, alone=None):
     """``trace.measure`` where no card is: the stretch run twice under a
     profiler of the host (the spans record in both), the ops of interest
     read from the second with each call's host time standing in for its
