@@ -44,6 +44,7 @@ from ultrasound_modeling_tpu_torch.models.resnest import (
     TRAIN_ROUTES, ResNeStEncoder)
 from ultrasound_modeling_tpu_torch.ops import kernels
 from ultrasound_modeling_tpu_torch.ops.attention import mha
+from ultrasound_modeling_tpu_torch.utils.tracing import span
 
 TRANSFORMER_LN_EPS = 1e-6
 ATTN_IMPLS = ("kernel", "plain", "composed")
@@ -55,7 +56,10 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """MHA with q/k/v/out projections and the 1/sqrt(heads) score scale."""
+    """MHA with q/k/v/out projections and the 1/sqrt(heads) score scale.
+    Under a profiler each train-mode call, on any of the three train
+    routes, is the span ``attention.train`` (``utils.tracing``); eval
+    opens none."""
 
     def __init__(self, hidden: int, num_heads: int, attn_impl: str,
                  attn_train_impl: str = "composed"):
@@ -75,6 +79,12 @@ class Attention(nn.Module):
         return w.to(dt), b
 
     def forward(self, x):
+        if self.training:
+            with span("attention.train"):
+                return self._forward(x)
+        return self._forward(x)
+
+    def _forward(self, x):
         scale = 1.0 / math.sqrt(self.num_heads)
         if self.training and self.attn_train_impl == "pallas":
             # K5's biases are float32 holding the compute dtype's values
