@@ -71,7 +71,8 @@ Phases (each checks its results; any failure exits non-zero):
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
    against the all-plain path, with launch counts and frames/s: 3 the
-   TransUNet, 3b the ViT, 3c the Swin (K4 in each of its 12 blocks, f32
+   TransUNet (K2's forward for each eval branch norm on the kernel path),
+   3b the ViT, 3c the Swin (K4 in each of its 12 blocks, f32
    and bf16), batch 64; 3d the ResNeStUNet (256x64x6) and 3e the
    MobileUNet (256x64x15), which have no kernel on their path: the card's
    f32 forward at batch 64 against the port's CPU forward of the first 4
@@ -133,6 +134,7 @@ and prints no result.  JAX is never imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -183,6 +185,9 @@ SERVE_KERNELS = {fam: ("transformer_block", "tb_layer_norm", "tb_linear",
                        "tb_attention_core") + K4_KERNELS
                  for fam in ("transunet", "vit")}
 SERVE_KERNELS["swin"] = K4_SWIN_KERNELS
+# the TransUNet's eval branch norms: K2's forward op and its kernel
+EVAL_NORM_KERNELS = ("group_flat_norm", "group_flat_norm_fwd")
+SERVE_KERNELS["transunet"] += EVAL_NORM_KERNELS
 SERVE_KERNELS.update({fam: () for fam, _ in UNETS})
 K2_KERNELS = ("group_flat_norm_fwd", "group_flat_norm_bwd")
 K3_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
@@ -212,6 +217,21 @@ class SmokeFailure(Exception):
 def require(ok, msg) -> None:
     if not ok:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def route_norm(route: str):
+    """On the plain route, the eval branch norm's plain version in place of
+    K2's forward op, so that the route is all plain (the model's attention
+    route has no say over the norm)."""
+    from ultrasound_modeling_tpu_torch.ops import kernels as K
+    op = K.group_flat_norm_eval
+    if route == "plain":
+        K.group_flat_norm_eval = K.group_flat_norm_plain
+    try:
+        yield
+    finally:
+        K.group_flat_norm_eval = op
 
 
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at a
@@ -1516,6 +1536,8 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
     # every layer under bf16 and K4 under f32; the Swin K4 in every block
     layers = sum(type(m).__name__ == "Block" for m in model.modules())
     windows = sum(type(m).__name__ == "WindowAttention" for m in model.modules())
+    # K2's eval norm: both branches of each split-attention stage
+    norms = 2 * sum(type(m).__name__ == "ResidualS" for m in model.modules())
     want = ({"f32": (0, windows), "bf16": (0, windows)} if family == "swin"
             else {"f32": (0, layers), "bf16": (layers, 0)})
     x = np.random.default_rng(seed + 1).standard_normal(
@@ -1526,7 +1548,7 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
         model.compute_dtype = dt
         for impl in ("kernel", "plain"):
             model.set_attn_impl(impl)
-            with torch.inference_mode():
+            with torch.inference_mode(), route_norm(impl):
                 K.reset_launch_counts()
                 p = model(xt)
                 torch.cuda.synchronize()
@@ -1548,6 +1570,9 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
                         f"{name}: K1 launches {counts}, want {want_k1}")
                 require(counts["window_attention"] == want_k4,
                         f"{name}: K4 launches {counts}, want {want_k4}")
+                require(counts["group_flat_norm"] == counts[
+                    "group_flat_norm_fwd"] == norms,
+                        f"{name}: K2 eval launches {counts}, want {norms}")
             else:
                 require(all(v == 0 for v in counts.values()),
                         f"{name}: plain path launched kernels {counts}")
@@ -2215,13 +2240,15 @@ def phase_cascade(dev, seed: int, x):
         for route in ("kernel", "plain"):
             brain.set_attn_impl(route)
             bleed.set_attn_impl(route)
-            K.reset_launch_counts()
-            probs, mask = cascade(x)
-            torch.cuda.synchronize()
-            counts = launched(*K1_KERNELS, *K4_KERNELS)
-            out[route] = (brain(x), probs, mask, counts)
+            with route_norm(route):
+                K.reset_launch_counts()
+                probs, mask = cascade(x)
+                torch.cuda.synchronize()
+                counts = launched(*K1_KERNELS, *K4_KERNELS)
+                out[route] = (brain(x), probs, mask, counts)
             if route == "kernel":
-                require_launched(counts, K1_KERNELS + K4_KERNELS, "cascade")
+                require_launched(counts, K1_KERNELS + K4_KERNELS
+                                 + EVAL_NORM_KERNELS, "cascade")
                 rate = frames_per_s(cascade, x)
             else:
                 require(not any(counts.values()), f"plain route {counts}")
@@ -2267,11 +2294,13 @@ def phase_int8(dev, model, x):
             for route in ("kernel", "plain"):
                 full.set_attn_impl(route)
                 K.reset_launch_counts()
-                out[route] = qf(x)
+                with route_norm(route):
+                    out[route] = qf(x)
                 torch.cuda.synchronize()
                 counts = launched()
                 if route == "kernel":
-                    need = K1_KERNELS if name == "bf16" else K4_KERNELS
+                    need = (K1_KERNELS if name == "bf16" else K4_KERNELS
+                            ) + EVAL_NORM_KERNELS
                     require_launched(counts, need, f"int8 {name}")
                     for k, v in counts.items():
                         total[k] = total.get(k, 0) + v
@@ -2336,8 +2365,8 @@ def phase_export(dev, model, qf, x, tmp: str):
                 torch.cuda.synchronize()
                 counts = launched()
                 want = eager(x[:b])
-            require_launched(counts, K1_KERNELS if bf16 else K4_KERNELS,
-                             f"artifact {name}")
+            require_launched(counts, (K1_KERNELS if bf16 else K4_KERNELS)
+                             + EVAL_NORM_KERNELS, f"artifact {name}")
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
             diff = (got - want).abs().max().item()

@@ -507,6 +507,79 @@ def test_group_flat_norm_unaligned_view(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
+# K2's forward op, the TransUNet's eval branch norm: the eight branch shapes
+# of a b64 serving forward (GFN_FLAGSHIP's rows twice)
+GFN_SERVE = [(2 * rows, f, gsize) for rows, f, gsize in GFN_FLAGSHIP]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,f,gsize", GFN_SERVE)
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_group_flat_norm_eval_op_at_serving_shapes(cuda, rows, f, gsize, dtype):
+    """group_flat_norm_eval on a [64, rows / 64, F] branch output: one op
+    call, one kernel launch, no layout copy, and the plain forward's values
+    within two bf16 quanta (f32: 1e-4 relative)."""
+    g = torch.Generator().manual_seed(gsize)
+    y = _rand(g, cuda, 64, rows // 64, f, scale=2.0, dtype=dtype) + 0.5
+    s, b = 1 + _rand(g, cuda, f, scale=0.1), _rand(g, cuda, f, scale=0.1)
+    K.reset_launch_counts()
+    got = K.group_flat_norm_eval(y, s, b, gsize, 1e-3, act="leaky",
+                                 act_alpha=0.3)
+    want = K.group_flat_norm_fwd_plain(y.view(rows, f), s, b, gsize, 1e-3, 0.3)
+    assert got.shape == y.shape and got.dtype == dtype
+    tol = _f32_tol(want) if dtype == torch.float32 else _quanta(want, 2)
+    assert (got.view(rows, f).float() - want.float()).abs().max().item() <= tol
+    assert K.LAUNCHES["group_flat_norm"] == K.LAUNCHES["group_flat_norm_fwd"] == 1
+    assert K.LAYOUT_COPIES["group_flat_norm"] == 0
+
+
+def _old_eval_norm(y, scale, bias, gsize, eps, act, act_alpha):
+    """The eval branch norm as it was written before it ran on K2: PyTorch
+    ops, the float32 result cast to y's dtype before the LeakyReLU."""
+    shape = y.shape
+    yg = y.float().reshape(*shape[:-1], shape[-1] // gsize, gsize)
+    zc = yg - yg.mean(-1, keepdim=True)
+    out = (zc * torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)).reshape(shape)
+    out = (out * scale.reshape(-1) + bias.reshape(-1)).to(y.dtype)
+    return torch.where(out >= 0, out, act_alpha * out)
+
+
+@pytest.mark.cuda
+def test_transunet_bf16_b64_eval_runs_k2_for_its_branch_norms(cuda, monkeypatch):
+    """The full-width TransUNet's bf16 eval forward at b64 (seeded random
+    weights): K2's forward op once for each of the 8 branch norms (two a
+    stage), each one launch, no layout copy; its probabilities within the
+    serving cell's limit (0.0065, the worst frame's RMS) of the same forward
+    with the old eval norm formula."""
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.models.registry import build_model
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+        from_flax, random_flax_variables)
+    mcfg = default_config("transunet").model
+    model = build_model(mcfg)
+    model.load_state_dict(from_flax(random_flax_variables(model, 0), "transunet"))
+    model = model.eval().to(cuda)
+    model.compute_dtype = BF
+    h, w = mcfg.img_size
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (64, h, w, mcfg.in_channels)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        copies = K.LAYOUT_COPIES["group_flat_norm"]
+        monkeypatch.setattr(K, "group_flat_norm_eval", _old_eval_norm)
+        want = model(x)
+    assert counts["group_flat_norm"] == counts["group_flat_norm_fwd"] == 8
+    assert copies == 0
+    d = (got.double() - want.double()).reshape(64, -1)
+    worst = d.pow(2).mean(1).sqrt().max().item()
+    print(f"bf16 b64 eval forward, K2 vs the old norm formula: worst frame "
+          f"RMS {worst:.3e}, max abs {d.abs().max().item():.3e}")
+    assert worst <= 0.0065
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,seq,c,heads", [(32, 80, 512, 4), (3, 20, 48, 4),
                                            (2, 160, 1280, 8)])

@@ -6,7 +6,8 @@ forward within 1e-6 at batches 1 and 3 (a static artifact at its pinned
 batch), and within 2e-5 of the JAX package's exported artifact of the same
 weights (at batch 3, or the pinned one) (:func:`check_round_trip`; ``test_torch_quantize.py`` runs it on
 the int8 forward).  The program keeps K1 and K4's forward as custom-op
-nodes, which an artifact loaded on the card runs as kernels."""
+nodes, and K2's forward (the split-attention branches' eval norm) too,
+which an artifact loaded on the card runs as kernels."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,8 @@ def check_round_trip(tmp_path, batch, quantize):
     _, mcfg = model_cfgs()
     exported = ex.export_forward(mcfg, model, SAMPLE, batch=batch,
                                  quantize=quantize)
-    assert _kernel_ops(exported) == ["ultrasound_port.window_attention.default"]
+    assert _kernel_ops(exported) == ["ultrasound_port.group_flat_norm.default",
+                                     "ultrasound_port.window_attention.default"]
     path = str(tmp_path / "m.pt2")
     ex.save_exported(exported, path)
     fn, shape, pinned = ex.load_exported_meta(path, torch.device("cpu"))
@@ -69,12 +71,14 @@ def test_exported_forward_round_trip(tmp_path, batch):
 
 
 def test_bf16_export_keeps_the_k1_op(tmp_path):
-    """Under bfloat16 the program calls K1 (one node a layer) and its output
-    equals the eager bf16 forward."""
+    """Under bfloat16 the program calls K1 (one node a layer) and K2's
+    forward (two nodes a split-attention stage), and its output equals the
+    eager bf16 forward."""
     model = port_model(compute_dtype="bfloat16")
     _, mcfg = model_cfgs(compute_dtype="bfloat16")
     exported = ex.export_forward(mcfg, model, SAMPLE)
-    assert _kernel_ops(exported) == ["ultrasound_port.transformer_block.default"]
+    assert _kernel_ops(exported) == ["ultrasound_port.group_flat_norm.default",
+                                     "ultrasound_port.transformer_block.default"]
     assert sum(str(n.target) == "ultrasound_port.transformer_block.default"
                for n in exported.graph.nodes) == 2
     path = str(tmp_path / "bf16.pt2")

@@ -15,9 +15,14 @@ are, and derives conv weights from them in the forward:
   the flat channel axis with float32 statistics, followed by LeakyReLU.  In train mode it is K2
   (``ops.kernels.group_flat_norm``, the activation folded in, with its
   backward kernel), as the JAX package's train lowering runs its Pallas
-  kernel; in eval mode it is plain PyTorch, as the JAX eval lowering is
-  XLA (``resnest.py:52-53``).  The JAX eval lowerings' 0/1
-  selection-matrix group sums are a TPU device for the MXU;
+  kernel.  In eval mode it is K2's forward alone
+  (``ops.kernels.group_flat_norm_eval``, an op an exported program keeps;
+  on CPU tensors its plain version).  The JAX eval lowering is XLA
+  (``resnest.py:43-53``) because XLA fuses the normalize into the conv's
+  epilogue on the TPU; eager PyTorch fuses nothing, and spelled out in
+  PyTorch ops the norm is a dozen f32 passes over the branch output, a
+  third of the bytes a bf16 serving forward moves.  The JAX eval
+  lowerings' 0/1 selection-matrix group sums are a TPU device for the MXU;
 * each branch's BatchNorm (the ResNeStUNet's stages, ELU) is a plain
   per-channel norm of the flat axis: batch statistics in train mode with
   the two-pass biased variance (``yf.var``, not flax ``nn.BatchNorm``'s
@@ -144,8 +149,8 @@ class ResidualS(nn.Module):
     def _branch_norm(self, y: torch.Tensor, name: str, gsize: int
                      ) -> torch.Tensor:
         """Per-branch norm + activation of the flat ``[B, H, W, K*R*c]``
-        branch output.  LayerNorm: K2 in train mode, plain PyTorch in eval;
-        BatchNorm: per flat channel."""
+        branch output.  LayerNorm: K2 in train mode (or its plain route),
+        K2's forward op in eval; BatchNorm: per flat channel."""
         scale = getattr(self, f"{name}_scale")
         bias = getattr(self, f"{name}_bias")
         if self.norm == "batch":
@@ -155,7 +160,9 @@ class ResidualS(nn.Module):
             a = torch.rsqrt(var + KERAS_BN_EPS) * sflat
             return self.act((yf * a + (bflat - mean * a)).to(y.dtype))
         if not self.training:
-            return leaky(_group_norm(y, scale, bias, gsize))
+            return kernels.group_flat_norm_eval(y, scale, bias, gsize,
+                                                KERAS_LN_EPS, act="leaky",
+                                                act_alpha=LEAKY_ALPHA)
         fn = (kernels.group_flat_norm if self.train_route == "kernel"
               else kernels.group_flat_norm_plain)
         return fn(y, scale, bias, gsize, KERAS_LN_EPS, act="leaky",

@@ -38,6 +38,8 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   Forward ``group_flat_norm_fwd`` and backward ``group_flat_norm_bwd``
   (``csrc/group_flat_norm.cu``: a persistent grid walking 16-byte aligned
   row tiles through a bulk-copy ring), joined by ``GroupFlatNorm``.
+  The eval forward of the same norm (serving) is the forward kernel alone,
+  the op ``ultrasound_port::group_flat_norm`` (``group_flat_norm_eval``).
 * **K3** ``flash_mha`` — replaces ``flash_mha`` (``pallas_kernels.py:655``;
   ``_flash_fwd_pallas`` ``:583`` and ``_flash_bwd_pallas`` ``:614``), the
   LSE-saving attention core of ``--attn-train flash``.  Forward
@@ -64,10 +66,10 @@ with PyTorch ops — the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 ``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4/K5
 call; ``LAYOUT_COPIES`` counts the inputs K2 and K3 had to copy into the
-contiguous layout their kernels read.  K1 and K4's forward are custom ops
-(``ultrasound_port::transformer_block``, ``::window_attention``), which
-``torch.export`` keeps as nodes of an exported program
-(``infer/export.py``).
+contiguous layout their kernels read.  K1, K4 and K2's forward are custom
+ops (``ultrasound_port::transformer_block``, ``::window_attention``,
+``::group_flat_norm``), which ``torch.export`` keeps as nodes of an exported
+program (``infer/export.py``).
 
 The kernels build on first use, one ``nvcc`` per source, all started
 together, into ``_build/`` (``build()``); nothing here touches CUDA at
@@ -153,12 +155,14 @@ WGRAD_BLOCKS_PER_SM = 1
 
 # launches per CUDA entry point (csrc/*.cu), plus one per call of the three
 # ported TPU kernels, K1, K4 and K5, that run a sequence of entry points
-# (K2's, K3's and K6's functions are one entry point each), plus the
+# (K2's, K3's and K6's functions are one entry point each), plus one per
+# call of K2's forward op (group_flat_norm: the eval norm), plus the
 # launches of K4's two shape-chosen kernels within their entry points:
 # wa_window_fwd (wa_attention_core's per-window kernel) and
 # wa_linear_narrow (wa_linear's narrow schedule)
 LAUNCHES = {"transformer_block": 0, "window_attention": 0,
-            "attention_train": 0, "wa_window_fwd": 0, "wa_linear_narrow": 0,
+            "group_flat_norm": 0, "attention_train": 0, "wa_window_fwd": 0,
+            "wa_linear_narrow": 0,
             **{fn: 0 for fns in SOURCES.values() for fn in fns}}
 # inputs that K2 / K3 received in a layout their kernels do not read and
 # copied (a non-contiguous conv output or incoming gradient; for K2 also a
@@ -559,8 +563,8 @@ class _NoGradient(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         raise RuntimeError(f"{ctx.name} is a forward op with no gradient; "
-                           f"train through window_attention_fused or the "
-                           f"train attention routes")
+                           f"train through window_attention_fused, "
+                           f"group_flat_norm or the train attention routes")
 
 
 def _forward_op(name: str, *args):
@@ -578,16 +582,16 @@ def _forward_op(name: str, *args):
     return _NoGradient.apply(name, out, *tensors)
 
 
-# K1 and K4's forward are ops of the ``ultrasound_port`` namespace
-# (torch.library), so that torch.export traces each call as one node and an
-# exported program launches the kernels as the eager forward does: the CPU
-# implementation is the plain version, the CUDA one the kernels (it counts
-# its launches, also when an exported program calls it), and the fake one
-# gives shape and dtype only.  They are defined by schema and called as
-# ``torch.ops.ultrasound_port.*.default``, which costs the dispatcher alone
-# (``torch.library.custom_op`` adds a Python wrapper to every call).  Their
-# arguments are tensors, lists of tensors and scalars: BlockWeights travels
-# as a list.
+# K1 and K4's forward (and K2's, below) are ops of the ``ultrasound_port``
+# namespace (torch.library), so that torch.export traces each call as one
+# node and an exported program launches the kernels as the eager forward
+# does: the CPU implementation is the plain version, the CUDA one the
+# kernels (it counts its launches, also when an exported program calls
+# it), and the fake one gives shape and dtype only.  They are defined by
+# schema and called as ``torch.ops.ultrasound_port.*.default``, which costs
+# the dispatcher alone (``torch.library.custom_op`` adds a Python wrapper
+# to every call).  Their arguments are tensors, lists of tensors and
+# scalars: BlockWeights travels as a list.
 _OPS = torch.library.Library("ultrasound_port", "DEF")
 _OPS.define("transformer_block(Tensor x, Tensor[] weights, int num_heads, "
             "float scale, float eps, Tensor? final_ln_w, Tensor? final_ln_b) "
@@ -1192,6 +1196,46 @@ def _gfn_alpha(act: Optional[str], act_alpha: float) -> Optional[float]:
     if act not in (None, "leaky"):
         raise ValueError(f"unsupported folded activation {act!r}")
     return float(act_alpha) if act == "leaky" else None
+
+
+# K2's forward alone as an op (see K1 and K4's above), for the eval norm.
+# The wrapper makes y contiguous; the CUDA impl checks the kernel's 16-byte
+# alignment on the real tensor (a traced one has no address).
+_OPS.define("group_flat_norm(Tensor y, Tensor scale, Tensor bias, int gsize, "
+            "float eps, float? alpha) -> Tensor")
+
+
+def _group_flat_norm_cuda(y, scale, bias, gsize, eps, alpha):
+    LAUNCHES["group_flat_norm"] += 1
+    return group_flat_norm_fwd(_gfn_layout(y), scale, bias, gsize, eps, alpha)
+
+
+@torch.library.register_fake("ultrasound_port::group_flat_norm", lib=_OPS)
+def _group_flat_norm_fake(y, scale, bias, gsize, eps, alpha):
+    return torch.empty_like(y)
+
+
+_OPS.impl("group_flat_norm", group_flat_norm_fwd_plain, "CPU")
+_OPS.impl("group_flat_norm", _group_flat_norm_cuda, "CUDA")
+
+
+def group_flat_norm_eval(y: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, gsize: int, eps: float,
+                         act: Optional[str] = None,
+                         act_alpha: float = 0.3) -> torch.Tensor:
+    """K2's forward with :func:`group_flat_norm`'s arguments, as the op
+    ``ultrasound_port::group_flat_norm``: one kernel launch on the card, the
+    plain version on the CPU.  It has no gradient: a backward through it
+    raises (train through :func:`group_flat_norm`).  A non-contiguous ``y``
+    is copied once and counted in ``LAYOUT_COPIES``."""
+    alpha = _gfn_alpha(act, act_alpha)
+    f = y.shape[-1]
+    y2 = _contiguous(y, "group_flat_norm").view(-1, f)
+    scale, bias = scale.reshape(-1), bias.reshape(-1)
+    _check_gfn(y2, scale, bias, gsize)
+    _on_cuda(y2, scale, bias)          # raises on a mix of devices
+    return _forward_op("group_flat_norm", y2, scale, bias, int(gsize),
+                       float(eps), alpha).view(y.shape)
 
 
 def group_flat_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
