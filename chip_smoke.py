@@ -70,7 +70,8 @@ Phases (each checks its results; any failure exits non-zero):
    enqueue one ``linear`` call (two TMA descriptors encoded per launch);
 3. the full-width forward (default config, seeded random weights in the
    flax layout loaded through the bridge) in f32 and bf16, kernel path
-   against the all-plain path, with launch counts and frames/s: 3 the
+   against the all-plain path (``kernels.plain_versions()``, which must
+   launch nothing; so in 5, 8b and 8c), with launch counts and frames/s: 3 the
    TransUNet (K2's forward for each eval branch norm on the kernel path),
    3b the ViT, 3c the Swin (K4 in each of its 12 blocks, f32
    and bf16), batch 64; 3d the ResNeStUNet (256x64x6) and 3e the
@@ -134,7 +135,6 @@ and prints no result.  JAX is never imported.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import io
 import json
 import os
@@ -217,21 +217,6 @@ class SmokeFailure(Exception):
 def require(ok, msg) -> None:
     if not ok:
         raise SmokeFailure(msg)
-
-
-@contextlib.contextmanager
-def route_norm(route: str):
-    """On the plain route, the eval branch norm's plain version in place of
-    K2's forward op, so that the route is all plain (the model's attention
-    route has no say over the norm)."""
-    from ultrasound_modeling_tpu_torch.ops import kernels as K
-    op = K.group_flat_norm_eval
-    if route == "plain":
-        K.group_flat_norm_eval = K.group_flat_norm_plain
-    try:
-        yield
-    finally:
-        K.group_flat_norm_eval = op
 
 
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet, at a
@@ -1547,8 +1532,7 @@ def phase_forward(dev, seed: int, batch: int, family: str, phase: str):
     for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         model.compute_dtype = dt
         for impl in ("kernel", "plain"):
-            model.set_attn_impl(impl)
-            with torch.inference_mode(), route_norm(impl):
+            with torch.inference_mode(), K.plain_versions(impl == "plain"):
                 K.reset_launch_counts()
                 p = model(xt)
                 torch.cuda.synchronize()
@@ -1832,14 +1816,14 @@ def phase_train_step(dev, seed: int):
         drop = torch.Generator(device=dev)
         set_drop_path_generator(model, drop)
         for route in ("kernel", "plain"):
-            model.set_train_route(route)
             model.zero_grad(set_to_none=True)
             drop.manual_seed(seed + 5)
             K.reset_launch_counts()
-            loss = losses.cce_smooth(label2vec(y), model(x).float())
-            if l2:
-                loss = loss + losses.l2_regularization(kernels, l2)
-            loss.backward()
+            with K.plain_versions(route == "plain"):
+                loss = losses.cce_smooth(label2vec(y), model(x).float())
+                if l2:
+                    loss = loss + losses.l2_regularization(kernels, l2)
+                loss.backward()
             torch.cuda.synchronize()
             counts = {k: v for k, v in K.LAUNCHES.items() if v}
             copies = dict(K.LAYOUT_COPIES)
@@ -1901,14 +1885,14 @@ def phase_train_step(dev, seed: int):
         step = make_train_step(model, losses.cce_smooth, l2_scale=l2)
         per = {"kernel": [], "plain": []}
         for route in ("plain", "kernel", "kernel", "plain"):
-            model.set_train_route(route)
-            for _ in range(2):
-                step(state, x, y, 1e-4)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                step(state, x, y, 1e-4)
-            torch.cuda.synchronize()
+            with K.plain_versions(route == "plain"):
+                for _ in range(2):
+                    step(state, x, y, 1e-4)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    step(state, x, y, 1e-4)
+                torch.cuda.synchronize()
             per[route].append((time.perf_counter() - t0) / 5 * 1e3)
         ms = {r: statistics.mean(v) for r, v in per.items()}
         step_ms[name] = ms
@@ -2238,9 +2222,7 @@ def phase_cascade(dev, seed: int, x):
     out = {}
     with torch.inference_mode():
         for route in ("kernel", "plain"):
-            brain.set_attn_impl(route)
-            bleed.set_attn_impl(route)
-            with route_norm(route):
+            with K.plain_versions(route == "plain"):
                 K.reset_launch_counts()
                 probs, mask = cascade(x)
                 torch.cuda.synchronize()
@@ -2292,9 +2274,8 @@ def phase_int8(dev, model, x):
         out = {}
         with torch.inference_mode():
             for route in ("kernel", "plain"):
-                full.set_attn_impl(route)
                 K.reset_launch_counts()
-                with route_norm(route):
+                with K.plain_versions(route == "plain"):
                     out[route] = qf(x)
                 torch.cuda.synchronize()
                 counts = launched()
@@ -2316,7 +2297,6 @@ def phase_int8(dev, model, x):
             f"{agree:.6f}; max abs diff {(out['kernel'] - ref).abs().max().item():.3e}; "
             f"{rate:.1f} frames/s; launches {kernel_counts}")
     full.compute_dtype = torch.float32
-    full.set_attn_impl("kernel")
     torch.cuda.empty_cache()
     return total, qf
 

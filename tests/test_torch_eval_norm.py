@@ -142,26 +142,49 @@ def test_eval_norm_copies_a_strided_input_once():
         y.contiguous(), s, b, 10, KERAS_LN_EPS, 0.3))
 
 
-def test_backward_through_the_eval_norm_raises():
-    """The op has no gradient: a backward through an eval stage raises
-    instead of taking autograd's fallback; without a gradient being taken
-    the output is the same."""
+def test_backward_through_the_eval_norm_raises(monkeypatch):
+    """The op has no gradient (a backward through it raises), so where a
+    gradient is taken an eval stage's branch norms run GroupFlatNorm
+    instead: the output is the no-gradient forward's, and the gradients of
+    x and of every parameter are the train-mode stage's, bit for bit."""
     stage = _stage(3, 10)
-    x = torch.randn(2, 8, 5, 10, generator=torch.Generator().manual_seed(5))
+    applied = []
+    apply = K.GroupFlatNorm.apply
+
+    def spy(*args):
+        applied.append(args[3])
+        return apply(*args)
+
+    monkeypatch.setattr(K.GroupFlatNorm, "apply", spy)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 8, 5, 10, generator=g).requires_grad_()
+    params = [x, *stage.parameters()]
     out = stage(x)
-    with pytest.raises(RuntimeError, match="group_flat_norm is a forward op"):
-        out.sum().backward()
+    assert applied == [3, 10]
+    cot = torch.randn(out.shape, generator=g)
+    grads = torch.autograd.grad((out * cot).sum(), params)
     with torch.no_grad():
         assert torch.equal(out.detach(), stage(x))
+    train_out = stage.train()(x)
+    assert torch.equal(out, train_out)
+    want = torch.autograd.grad((train_out * cot).sum(), params)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+    y = torch.randn(4, 27, generator=g).requires_grad_()
+    out = K.group_flat_norm_eval(y, stage.branch1_norm_scale,
+                                 stage.branch1_norm_bias, 3, KERAS_LN_EPS,
+                                 act="leaky", act_alpha=LEAKY_ALPHA)
+    with pytest.raises(RuntimeError, match="group_flat_norm is a forward op"):
+        out.sum().backward()
 
 
 @pytest.mark.parametrize("route", ["kernel", "plain"])
 def test_train_mode_keeps_its_route(monkeypatch, route):
-    """Train mode runs GroupFlatNorm (the kernel route) or the plain
-    version, never the forward op: the output and the gradients of y, scale
-    and bias are those of the route's own function, bit for bit."""
+    """Train mode runs GroupFlatNorm (the kernel route) or, under
+    kernels.plain_versions(), the plain version, never the forward op: the
+    output and the gradients of y, scale and bias are those of the route's
+    own function, bit for bit."""
     stage = _stage(7, 21).train()
-    stage.train_route = route
     applied = []
     apply = K.GroupFlatNorm.apply
 
@@ -174,9 +197,10 @@ def test_train_mode_keeps_its_route(monkeypatch, route):
     g = torch.Generator().manual_seed(6)
     y = (torch.randn(2, 8, 5, 189, generator=g) * 2).requires_grad_()
     cot = torch.randn(y.shape, generator=g)
-    out = stage._branch_norm(y, "branch2_norm", 21)
-    grads = torch.autograd.grad((out * cot).sum(), (
-        y, stage.branch2_norm_scale, stage.branch2_norm_bias))
+    with K.plain_versions(route == "plain"):
+        out = stage._branch_norm(y, "branch2_norm", 21)
+        grads = torch.autograd.grad((out * cot).sum(), (
+            y, stage.branch2_norm_scale, stage.branch2_norm_bias))
     assert applied == ([21] if route == "kernel" else [])
     fn = K.group_flat_norm if route == "kernel" else K.group_flat_norm_plain
     want = fn(y, stage.branch2_norm_scale, stage.branch2_norm_bias, 21,

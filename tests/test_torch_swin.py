@@ -46,7 +46,8 @@ TINY = dict(num_classes=3, img_size=(32, 20), embed_dim=16, depths=(2, 2, 2),
             num_heads=(2, 4, 8), window=(2, 5))
 PIN = dict(num_classes=3, img_size=(16, 20), embed_dim=8, depths=(1,),
            num_heads=(2,), window=(2, 2))
-# port route -> the JAX attn_impl it reproduces
+# port route -> the JAX attn_impl it reproduces ('plain': the kernel route
+# under kernels.plain_versions())
 JAX_ROUTE = {"composed": "xla", "kernel": "pallas", "plain": "pallas"}
 BF16_Q = 2.0 ** -8     # one bf16 quantum, relative
 
@@ -92,6 +93,11 @@ def _port(**kw):
     m = swin.SwinSegmenter(**TINY, drop_path_rate=0.0, **kw)
     m.load_state_dict(bridge.from_flax(_flax()[1], "swin"), strict=True)
     return m
+
+
+def _impl(route):
+    """The model's attn_impl on a port route."""
+    return "composed" if route == "composed" else "kernel"
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,9 +236,9 @@ def test_swin_f32_forward_reproduces_parity_pin(pins, pin_flax, attn_impl):
     bridge reproduces ``swin/y`` within atol 2e-5 (the TransUNet pin's
     bound) on every route."""
     m = swin.SwinSegmenter(**PIN, in_channels=4, drop_path_rate=0.0,
-                           attn_impl=attn_impl)
+                           attn_impl=_impl(attn_impl))
     m.load_state_dict(bridge.from_flax(pin_flax, "swin"), strict=True)
-    with torch.inference_mode():
+    with torch.inference_mode(), K.plain_versions(attn_impl == "plain"):
         got = m.eval()(torch.from_numpy(pins["swin/x"])).numpy()
     want = pins["swin/y"]
     assert got.shape == want.shape == (1, 16, 20, 3)
@@ -246,8 +252,8 @@ def test_swin_f32_eval_matches_flax(batch, attn_impl):
     for 'kernel' and 'plain') within 1e-5."""
     x, _ = batch
     want = _jax_eval(JAX_ROUTE[attn_impl])
-    with torch.inference_mode():
-        got = _port(attn_impl=attn_impl).eval()(_t(x))
+    with torch.inference_mode(), K.plain_versions(attn_impl == "plain"):
+        got = _port(attn_impl=_impl(attn_impl)).eval()(_t(x))
     assert got.shape == (2, 32, 20, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
@@ -424,11 +430,11 @@ def test_swin_train_loss_and_grads_match_jax(batch, attn_impl):
     the plain version, both against K4's custom VJP in interpret mode)."""
     x, y = batch
     jl, want = _jax_value_and_grad(x, y, JAX_ROUTE[attn_impl])
-    model = _port(attn_impl="kernel" if attn_impl == "plain" else attn_impl)
+    model = _port(attn_impl=_impl(attn_impl))
     model.train()
-    model.set_train_route("plain" if attn_impl == "plain" else "kernel")
-    loss = losses.cce_smooth(labels.label2vec(_t(y)), model(_t(x)))
-    loss.backward()
+    with K.plain_versions(attn_impl == "plain"):
+        loss = losses.cce_smooth(labels.label2vec(_t(y)), model(_t(x)))
+        loss.backward()
     assert float(loss.detach()) == pytest.approx(jl, rel=1e-5)
     got = bridge.to_flax({n: p.grad for n, p in model.named_parameters()},
                          "swin")

@@ -19,6 +19,7 @@ from ultrasound_modeling_tpu.models import common as jax_common
 from ultrasound_modeling_tpu.models.transunet import TransUNet as JaxTransUNet
 from ultrasound_modeling_tpu.utils.checkpoint import flatten_params
 from ultrasound_modeling_tpu_torch.models.transunet import TransUNet
+from ultrasound_modeling_tpu_torch.ops import kernels as K
 from ultrasound_modeling_tpu_torch.utils import checkpoint as bridge
 
 TINY = dict(num_classes=3, hidden_size=64, num_heads=4, num_layers=2,
@@ -123,13 +124,16 @@ def test_bf16_forward_matches_jax_fused_stack(flax_tiny, pins):
 
 def test_kernel_and_plain_routes_agree_on_cpu(flax_tiny, pins):
     """On CPU tensors the kernel wrappers run their plain versions: the
-    'kernel' and 'plain' routes must be bitwise equal, in f32 and bf16."""
+    kernel route and the same model under kernels.plain_versions() must be
+    bitwise equal, in f32 and bf16."""
     _, _, flat = flax_tiny
     x = torch.from_numpy(pins["transunet/x"])
     for dt in (torch.float32, torch.bfloat16):
         with torch.inference_mode():
-            a = _port(flat, attn_impl="kernel", compute_dtype=dt)(x)
-            b = _port(flat, attn_impl="plain", compute_dtype=dt)(x)
+            m = _port(flat, attn_impl="kernel", compute_dtype=dt)
+            a = m(x)
+            with K.plain_versions():
+                b = m(x)
         assert torch.equal(a, b), dt
 
 

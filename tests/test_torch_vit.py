@@ -36,6 +36,7 @@ from ultrasound_modeling_tpu_torch.data.pipeline import Dataset
 from ultrasound_modeling_tpu_torch.models import common as tc
 from ultrasound_modeling_tpu_torch.models.registry import build_model
 from ultrasound_modeling_tpu_torch.models.vit import ViTSegmenter
+from ultrasound_modeling_tpu_torch.ops import kernels as K
 from ultrasound_modeling_tpu_torch.train import losses, optim
 from ultrasound_modeling_tpu_torch.train.loop import Trainer
 from ultrasound_modeling_tpu_torch.train.step import TrainState, make_train_step
@@ -131,13 +132,15 @@ def test_vit_random_flax_variables_cover_the_tree():
 @pytest.mark.parametrize("attn_impl", ["composed", "plain", "kernel"])
 def test_vit_f32_eval_matches_flax(batch, variant, attn_impl):
     """f32 eval probabilities against flax (its composed 'xla' path) within
-    1e-5; 'kernel' runs K4 in every Attention (its plain version here)."""
+    1e-5; 'kernel' runs K4 in every Attention (its plain version here),
+    'plain' the kernel route under kernels.plain_versions()."""
     x, _ = batch
     params, _ = _flax(variant)
     want = np.asarray(JaxViT(**TINY, **VARIANTS[variant]).apply(
         {"params": params}, jnp.asarray(x), False))
-    with torch.inference_mode():
-        got = _port(variant, attn_impl=attn_impl).eval()(_t(x))
+    impl = "composed" if attn_impl == "composed" else "kernel"
+    with torch.inference_mode(), K.plain_versions(attn_impl == "plain"):
+        got = _port(variant, attn_impl=impl).eval()(_t(x))
     assert got.shape == (2, 32, 20, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
@@ -157,8 +160,8 @@ def test_vit_bf16_eval_matches_jax_fused_stack(batch):
     with torch.inference_mode():
         m = _port("base", compute_dtype=torch.bfloat16).eval()
         got = m(_t(x))
-        m.set_attn_impl("plain")
-        plain = m(_t(x))
+        with K.plain_versions():
+            plain = m(_t(x))
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert torch.equal(got, plain)
     assert np.abs(got.numpy() - want).max() <= 0.02

@@ -40,7 +40,8 @@ def build_model(cfg: ModelConfig) -> torch.nn.Module:
     if name in ("transunet", "vit") and cfg.dropout_rate:
         raise NotImplementedError(
             f"dropout_rate={cfg.dropout_rate} is not ported yet (the "
-            f"default configs train without dropout): ROADMAP Queue 1")
+            f"default configs train without dropout): ROADMAP, \"Knobs the "
+            f"port refuses\"")
     if name == "vit":
         from ultrasound_modeling_tpu_torch.models.vit import ViTSegmenter
         return ViTSegmenter(

@@ -12,12 +12,12 @@ are, and derives conv weights from them in the forward:
   grouped conv with ``groups=K*R`` (the JAX package's block-diagonal dense
   kernel, without the zeros);
 * each branch's LayerNorm (the TransUNet's stages) is a per-group norm on
-  the flat channel axis with float32 statistics, followed by LeakyReLU.  In train mode it is K2
-  (``ops.kernels.group_flat_norm``, the activation folded in, with its
-  backward kernel), as the JAX package's train lowering runs its Pallas
-  kernel.  In eval mode it is K2's forward alone
-  (``ops.kernels.group_flat_norm_eval``, an op an exported program keeps;
-  on CPU tensors its plain version).  The JAX eval lowering is XLA
+  the flat channel axis with float32 statistics, followed by LeakyReLU: K2
+  (``ops.kernels.group_flat_norm``, the activation folded in).  Where a
+  gradient is taken it runs with its backward kernel, as the JAX package's
+  train lowering runs its Pallas kernel; where none is (serving), its
+  forward alone, an op an exported program keeps (on CPU tensors its plain
+  version).  The JAX eval lowering is XLA
   (``resnest.py:43-53``) because XLA fuses the normalize into the conv's
   epilogue on the TPU; eager PyTorch fuses nothing, and spelled out in
   PyTorch ops the norm is a dozen f32 passes over the branch output, a
@@ -35,12 +35,10 @@ are, and derives conv weights from them in the forward:
   -> radix-weighted sum.  Under BatchNorm the attention norm reduces over
   the batch axis alone.
 
-``train_route`` picks K2 (``'kernel'``) or its plain PyTorch version
-differentiated by autograd (``'plain'``, the reference the kernel route is
-held against on the card).  The stem's BatchNorms train with batch
-statistics (``models/common.BatchNorm``).  The ResNeStUNet's
-upsamples drop half their activations in train mode (``common.Dropout``,
-fixed by the architecture).
+The stem's BatchNorms train with batch statistics
+(``models/common.BatchNorm``).  The ResNeStUNet's upsamples drop half
+their activations in train mode (``common.Dropout``, fixed by the
+architecture).
 
 Left out: ``impl='vmap'``, remat.
 """
@@ -56,9 +54,6 @@ from ultrasound_modeling_tpu_torch.models.common import (
     KERAS_BN_EPS, KERAS_BN_MOMENTUM, KERAS_LN_EPS, LEAKY_ALPHA, Conv,
     ConvTranspose, Dropout, Norm, avg_pool2, conv_nhwc, elu, leaky, softmax_f32)
 from ultrasound_modeling_tpu_torch.ops import kernels
-
-TRAIN_ROUTES = ("kernel", "plain")
-
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 gsize: int) -> torch.Tensor:
@@ -91,7 +86,6 @@ class ResidualS(nn.Module):
         if norm not in ("layer", "batch"):
             raise ValueError(f"unknown norm {norm!r}")
         k_, r_ = kpaths, radix
-        self.train_route = "kernel"
         self.norm, self.act = norm, ACTS[act]
         card = outchannel // 2
         self.k, self.r, self.ksize = k_, r_, ksize
@@ -149,8 +143,7 @@ class ResidualS(nn.Module):
     def _branch_norm(self, y: torch.Tensor, name: str, gsize: int
                      ) -> torch.Tensor:
         """Per-branch norm + activation of the flat ``[B, H, W, K*R*c]``
-        branch output.  LayerNorm: K2 in train mode (or its plain route),
-        K2's forward op in eval; BatchNorm: per flat channel."""
+        branch output.  LayerNorm: K2; BatchNorm: per flat channel."""
         scale = getattr(self, f"{name}_scale")
         bias = getattr(self, f"{name}_bias")
         if self.norm == "batch":
@@ -159,14 +152,8 @@ class ResidualS(nn.Module):
             mean, var = self._batch_stats(yf, name, (0, 1, 2))
             a = torch.rsqrt(var + KERAS_BN_EPS) * sflat
             return self.act((yf * a + (bflat - mean * a)).to(y.dtype))
-        if not self.training:
-            return kernels.group_flat_norm_eval(y, scale, bias, gsize,
-                                                KERAS_LN_EPS, act="leaky",
-                                                act_alpha=LEAKY_ALPHA)
-        fn = (kernels.group_flat_norm if self.train_route == "kernel"
-              else kernels.group_flat_norm_plain)
-        return fn(y, scale, bias, gsize, KERAS_LN_EPS, act="leaky",
-                  act_alpha=LEAKY_ALPHA)
+        return kernels.group_flat_norm(y, scale, bias, gsize, KERAS_LN_EPS,
+                                       act="leaky", act_alpha=LEAKY_ALPHA)
 
     def _attn_norm(self, a: torch.Tensor) -> torch.Tensor:
         """The split attention's norm + activation of ``a [B, K, C]``."""

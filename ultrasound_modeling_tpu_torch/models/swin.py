@@ -25,20 +25,15 @@ dtype its sums promote to.  ``attn_impl`` picks the attention:
 
 * ``'kernel'`` — K4 (``ops.kernels.window_attention_fused``: the CUDA
   forward, the recompute backward with its attention part in one CUDA
-  kernel), the JAX ``'pallas'`` route; with gradients off (serving, the
-  exported program) its forward op ``ops.kernels.window_attention`` alone.
-  Its output is in its input's dtype, so under bfloat16 the residual
-  stream stays bfloat16;
-* ``'plain'`` — K4's plain version (``window_attention_plain``), the same
-  dtypes, differentiated by autograd;
+  kernel), the JAX ``'pallas'`` route; where no gradient is taken
+  (serving, the exported program) its forward op alone.  Its output is in
+  its input's dtype, so under bfloat16 the residual stream stays bfloat16;
 * ``'composed'`` — ``ops.window_attn.window_attention`` then the
   projection, the JAX ``'xla'`` route.  The float32 params promote its
   output to float32, so under bfloat16 the residual stream is float32.
 
-In train mode ``train_route`` (``'kernel'`` / ``'plain'``) picks K4 or its
-plain version under ``attn_impl='kernel'``.  ``DropPath`` draws from an
-explicit ``torch.Generator`` (``set_drop_path_generator``; the Trainer's
-is ``TrainState.drop_gen``).
+``DropPath`` draws from an explicit ``torch.Generator``
+(``set_drop_path_generator``; the Trainer's is ``TrainState.drop_gen``).
 
 Left out: loading ImageNet-pretrained weights (``utils/swin_convert.py``).
 """
@@ -117,7 +112,6 @@ class WindowAttention(nn.Module):
         wh, ww = window
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.train_route = "kernel"
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads))
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -133,18 +127,10 @@ class WindowAttention(nn.Module):
                                       table, self.rel_index, self.num_heads,
                                       mask)
             return F.linear(ctx, self.proj.weight, self.proj.bias)
-        kernel = self.attn_impl == "kernel" and not (
-            self.training and self.train_route == "plain")
-        if kernel and not torch.is_grad_enabled():
-            # no gradient to take: K4's forward op itself, which
-            # torch.export keeps as a node (infer/export.py)
-            fn = kernels.window_attention
-        else:
-            fn = (kernels.window_attention_fused if kernel
-                  else kernels.window_attention_plain)
-        return fn(x.contiguous(), self.qkv.weight, self.qkv.bias,
-                  self.proj.weight, self.proj.bias, self.num_heads,
-                  bias_table=table, rel_index=self.rel_index, mask=mask)
+        return kernels.window_attention_fused(
+            x, self.qkv.weight, self.qkv.bias, self.proj.weight,
+            self.proj.bias, self.num_heads, bias_table=table,
+            rel_index=self.rel_index, mask=mask)
 
 
 class SwinBlock(nn.Module):

@@ -9,10 +9,8 @@ does in the JAX package ('xla' / 'pallas'):
 * ``'kernel'`` — the serving path.  Under bfloat16 the whole stack runs
   through K1 (``ops.kernels.transformer_block``, one call per layer, the
   trailing ``encoder_norm`` folded into the last); under float32 every
-  Attention runs K4 (``ops.kernels.window_attention``, each batch element
-  one 80-token window, no bias).
-* ``'plain'`` — the same dataflow through the kernels' plain PyTorch
-  versions (the reference the kernels are held against on the card).
+  Attention runs K4 (``ops.kernels.window_attention_fused``, each batch
+  element one 80-token window, no bias).
 * ``'composed'`` — q/k/v/out linears + ``ops.attention.mha``, the JAX
   package's 'xla' path.
 
@@ -21,10 +19,9 @@ In train mode ``attn_train_impl`` picks it, as in the JAX package:
 qkv projection as one matmul, K3 ``ops.kernels.flash_mha`` with its
 backward kernel, the output projection) or ``'pallas'`` (the whole chain
 as K5 ``ops.kernels.attention_train_fused``, whose forward saves qkv and
-the probabilities for its backward).  ``train_route`` (``'kernel'`` /
-``'plain'``) picks the train kernels K2, K3 and K5 or their plain
-versions, differentiated by autograd.  The BatchNorms train with batch
-statistics.
+the probabilities for its backward).  Under ``ops.kernels.plain_versions()``
+each kernel named here runs its plain PyTorch version.  The BatchNorms
+train with batch statistics.
 
 Left out: ``KSACDecoderBlock``, pipeline parallelism, remat, dropout.
 """
@@ -40,14 +37,13 @@ from torch import nn
 
 from ultrasound_modeling_tpu_torch.models.common import (
     Conv, ConvTranspose, LayerNorm, Norm, gelu, leaky)
-from ultrasound_modeling_tpu_torch.models.resnest import (
-    TRAIN_ROUTES, ResNeStEncoder)
+from ultrasound_modeling_tpu_torch.models.resnest import ResNeStEncoder
 from ultrasound_modeling_tpu_torch.ops import kernels
 from ultrasound_modeling_tpu_torch.ops.attention import mha
 from ultrasound_modeling_tpu_torch.utils.tracing import span
 
 TRANSFORMER_LN_EPS = 1e-6
-ATTN_IMPLS = ("kernel", "plain", "composed")
+ATTN_IMPLS = ("kernel", "composed")
 ATTN_TRAIN_IMPLS = ("composed", "flash", "pallas")
 
 
@@ -67,7 +63,6 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.attn_train_impl = attn_train_impl
-        self.train_route = "kernel"
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
@@ -90,24 +85,21 @@ class Attention(nn.Module):
             # K5's biases are float32 holding the compute dtype's values
             # (the JAX Attention casts every parameter to it)
             w, b = self._qkv_weights(x.dtype)
-            fn = (kernels.attention_train_fused if self.train_route == "kernel"
-                  else kernels.attention_train_fused_plain)
-            return fn(x, w, b.to(x.dtype).float(), self.out.weight.to(x.dtype),
-                      self.out.bias.to(x.dtype).float(), self.num_heads, scale)
+            return kernels.attention_train_fused(
+                x, w, b.to(x.dtype).float(), self.out.weight.to(x.dtype),
+                self.out.bias.to(x.dtype).float(), self.num_heads, scale)
         if self.training and self.attn_train_impl == "flash":
             w, b = self._qkv_weights(x.dtype)
-            fn = (kernels.flash_mha if self.train_route == "kernel"
-                  else kernels.flash_mha_plain)
-            ctx = fn(F.linear(x, w, b.to(x.dtype)), self.num_heads, scale)
+            ctx = kernels.flash_mha(F.linear(x, w, b.to(x.dtype)),
+                                    self.num_heads, scale)
             return _linear(ctx, self.out)
         if self.training or self.attn_impl == "composed":
             q, k, v = (_linear(x, m) for m in (self.query, self.key, self.value))
             return _linear(mha(q, k, v, self.num_heads, scale), self.out)
-        fn = (kernels.window_attention if self.attn_impl == "kernel"
-              else kernels.window_attention_plain)
         qkv_w, qkv_b = self._qkv_weights(x.dtype)
-        return fn(x.contiguous(), qkv_w, qkv_b, self.out.weight.to(x.dtype),
-                  self.out.bias, self.num_heads, scale=scale)
+        return kernels.window_attention_fused(
+            x, qkv_w, qkv_b, self.out.weight.to(x.dtype), self.out.bias,
+            self.num_heads, scale=scale)
 
 
 class Mlp(nn.Module):
@@ -149,20 +141,17 @@ class Block(nn.Module):
             f.fc1.weight.to(bf), f.fc1.bias, f.fc2.weight.to(bf), f.fc2.bias)
 
 
-def k1_stack(blocks, norm: nn.LayerNorm, x: torch.Tensor, num_heads: int,
-             attn_impl: str) -> torch.Tensor:
-    """The bf16 serving stack: each block through K1 (``attn_impl
-    'kernel'``) or its plain version (``'plain'``), the trailing LayerNorm
-    ``norm`` folded into the last one."""
-    fn = (kernels.transformer_block if attn_impl == "kernel"
-          else kernels.transformer_block_plain)
+def k1_stack(blocks, norm: nn.LayerNorm, x: torch.Tensor,
+             num_heads: int) -> torch.Tensor:
+    """The bf16 serving stack: each block through K1, the trailing
+    LayerNorm ``norm`` folded into the last one."""
     scale = 1.0 / math.sqrt(num_heads)
     x = x.contiguous()
     last = len(blocks) - 1
     for i, blk in enumerate(blocks):
         fin = (norm.weight, norm.bias) if i == last else None
-        x = fn(x, blk.k1_weights(), num_heads, scale, TRANSFORMER_LN_EPS,
-               final_ln=fin)
+        x = kernels.transformer_block(x, blk.k1_weights(), num_heads, scale,
+                                      TRANSFORMER_LN_EPS, final_ln=fin)
     return x
 
 
@@ -183,8 +172,7 @@ class Encoder(nn.Module):
         # the K1 stack is an inference kernel: bf16 eval only, as in JAX
         if (not self.training and self.attn_impl != "composed"
                 and x.dtype == torch.bfloat16):
-            return k1_stack(self.blocks, self.encoder_norm, x, self.num_heads,
-                            self.attn_impl)
+            return k1_stack(self.blocks, self.encoder_norm, x, self.num_heads)
         for blk in self.blocks:
             x = blk(x)
         return self.encoder_norm(x)
@@ -250,7 +238,7 @@ class DecoderCup(nn.Module):
 
 
 class Segmenter(nn.Module):
-    """Route switches shared by the ported families."""
+    """The attention switch shared by the ported families."""
 
     def set_attn_impl(self, attn_impl: str) -> None:
         if attn_impl not in ATTN_IMPLS:
@@ -258,16 +246,6 @@ class Segmenter(nn.Module):
         for m in self.modules():
             if hasattr(m, "attn_impl"):
                 m.attn_impl = attn_impl
-
-    def set_train_route(self, route: str) -> None:
-        """``'kernel'``: train mode runs the train kernels (K2, K3 under
-        'flash', K5 under 'pallas'); ``'plain'``: their plain versions,
-        differentiated by autograd."""
-        if route not in TRAIN_ROUTES:
-            raise ValueError(f"unknown train route {route!r}")
-        for m in self.modules():
-            if hasattr(m, "train_route"):
-                m.train_route = route
 
 
 def check_impls(attn_impl: str, attn_train_impl: str) -> None:

@@ -100,7 +100,7 @@ class ViTSegmenter(Segmenter):
         if (not self.training and self.attn_impl != "composed"
                 and emb.dtype == torch.bfloat16):
             emb = k1_stack(self.blocks(), self.encoder_norm, emb,
-                           self.num_heads, self.attn_impl)
+                           self.num_heads)
         else:
             for blk in self.blocks():
                 emb = blk(emb)

@@ -38,8 +38,9 @@ line below is in ``ultrasound_modeling_tpu/ops/``:
   Forward ``group_flat_norm_fwd`` and backward ``group_flat_norm_bwd``
   (``csrc/group_flat_norm.cu``: a persistent grid walking 16-byte aligned
   row tiles through a bulk-copy ring), joined by ``GroupFlatNorm``.
-  The eval forward of the same norm (serving) is the forward kernel alone,
-  the op ``ultrasound_port::group_flat_norm`` (``group_flat_norm_eval``).
+  Where no gradient is taken (serving) ``group_flat_norm`` runs the forward
+  kernel alone, the op ``ultrasound_port::group_flat_norm``
+  (``group_flat_norm_eval``).
 * **K3** ``flash_mha`` — replaces ``flash_mha`` (``pallas_kernels.py:655``;
   ``_flash_fwd_pallas`` ``:583`` and ``_flash_bwd_pallas`` ``:614``), the
   LSE-saving attention core of ``--attn-train flash``.  Forward
@@ -64,6 +65,8 @@ outputs.  For CUDA tensors it launches its kernel (or raises); for CPU
 tensors it calls the plain version, which is the same function written
 with PyTorch ops — the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
+The entries the models call pick between a kernel and its plain version
+here alone: :func:`plain_versions` makes them run the plain one anywhere.
 ``LAUNCHES`` counts kernel launches per CUDA entry point and per K1/K4/K5
 call; ``LAYOUT_COPIES`` counts the inputs K2 and K3 had to copy into the
 contiguous layout their kernels read.  K1, K4 and K2's forward are custom
@@ -78,6 +81,7 @@ import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -273,6 +277,30 @@ def _on_cuda(*ts: Optional[torch.Tensor]) -> bool:
         return True
     raise ValueError(f"kernel inputs must all be on one CPU or CUDA device, "
                      f"got {sorted(kinds)}")
+
+
+_PLAIN = False
+
+
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """While active (and ``on``), in every thread, each kernel entry a
+    model calls (``transformer_block``, ``window_attention_fused``,
+    ``group_flat_norm``, ``flash_mha``, ``attention_train_fused``) runs its
+    ``*_plain`` version on any device and launches nothing.  It exists to
+    hold the kernels against their plain versions."""
+    global _PLAIN
+    old, _PLAIN = _PLAIN, _PLAIN or on
+    try:
+        yield
+    finally:
+        _PLAIN = old
+
+
+def _grad_taken(*ts: Optional[torch.Tensor]) -> bool:
+    """True where autograd records an op on ``ts``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
@@ -632,6 +660,8 @@ def transformer_block(x: torch.Tensor, w: BlockWeights, num_heads: int,
     """K1: one bf16 pre-LN block ``x [B, S, C]`` bf16 -> bf16, with the
     stack's trailing LayerNorm folded in when ``final_ln = (w, b)``; the
     op ``ultrasound_port::transformer_block``."""
+    if _PLAIN:
+        return transformer_block_plain(x, w, num_heads, scale, eps, final_ln)
     b, s, c = x.shape
     _check(x, "x", (_BF16,))
     _check_attention_shape(b * s, s, 3 * c, num_heads, None)
@@ -1009,16 +1039,25 @@ def window_attention_fused(x: torch.Tensor, qkv_w: torch.Tensor,
                            rel_index: Optional[torch.Tensor] = None,
                            mask: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Differentiable K4 with :func:`window_attention`'s contract
-    (``pallas_kernels.window_attention_fused``): gradients to x, both
-    projections and their biases, and through the additive matrix's gather
-    to the bias table."""
+    """K4 with :func:`window_attention`'s contract (``pallas_kernels.
+    window_attention_fused``): where a gradient is taken
+    ``WindowAttentionFused``, with gradients to x, both projections and
+    their biases, and through the additive matrix's gather to the bias
+    table; where none is, the forward op alone."""
+    x = x.contiguous()
+    if _PLAIN:
+        return window_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b,
+                                      num_heads, bias_table, rel_index, mask,
+                                      scale)
     addmask = window_attn.additive_matrix(num_heads, x.shape[1], bias_table,
                                           rel_index, mask)
     if scale is None:
         scale = (x.shape[-1] // num_heads) ** -0.5
-    return WindowAttentionFused.apply(x.contiguous(), qkv_w, qkv_b, proj_w,
-                                      proj_b, addmask, num_heads, float(scale))
+    if not _grad_taken(x, qkv_w, qkv_b, proj_w, proj_b, addmask):
+        return window_attention_fwd(x, qkv_w, qkv_b, proj_w, proj_b,
+                                    num_heads, addmask, float(scale))
+    return WindowAttentionFused.apply(x, qkv_w, qkv_b, proj_w, proj_b,
+                                      addmask, num_heads, float(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -1225,9 +1264,9 @@ def group_flat_norm_eval(y: torch.Tensor, scale: torch.Tensor,
                          act_alpha: float = 0.3) -> torch.Tensor:
     """K2's forward with :func:`group_flat_norm`'s arguments, as the op
     ``ultrasound_port::group_flat_norm``: one kernel launch on the card, the
-    plain version on the CPU.  It has no gradient: a backward through it
-    raises (train through :func:`group_flat_norm`).  A non-contiguous ``y``
-    is copied once and counted in ``LAYOUT_COPIES``."""
+    plain version on the CPU; :func:`group_flat_norm` where no gradient is
+    taken.  A backward through it raises.  A non-contiguous ``y`` is copied
+    once and counted in ``LAYOUT_COPIES``."""
     alpha = _gfn_alpha(act, act_alpha)
     f = y.shape[-1]
     y2 = _contiguous(y, "group_flat_norm").view(-1, f)
@@ -1241,11 +1280,19 @@ def group_flat_norm_eval(y: torch.Tensor, scale: torch.Tensor,
 def group_flat_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     gsize: int, eps: float, act: Optional[str] = None,
                     act_alpha: float = 0.3) -> torch.Tensor:
-    """Differentiable K2 with the JAX signature (``pallas_kernels.
-    group_flat_norm``): ``y [..., F]``, per-channel ``scale``/``bias`` of F
-    values (any shape), ``act='leaky'`` folds LeakyReLU(``act_alpha``) in.
-    The kernels read ``y`` as a contiguous, 16-byte aligned ``[rows, F]``;
-    any other layout is copied once and counted in ``LAYOUT_COPIES``."""
+    """K2 with the JAX signature (``pallas_kernels.group_flat_norm``): ``y
+    [..., F]``, per-channel ``scale``/``bias`` of F values (any shape),
+    ``act='leaky'`` folds LeakyReLU(``act_alpha``) in.  Where a gradient is
+    taken ``GroupFlatNorm``; where none is, the forward op alone
+    (:func:`group_flat_norm_eval`).  The kernels read ``y`` as a contiguous,
+    16-byte aligned ``[rows, F]``; any other layout is copied once and
+    counted in ``LAYOUT_COPIES``."""
+    if _PLAIN:
+        return group_flat_norm_plain(y, scale, bias, gsize, eps, act,
+                                     act_alpha)
+    if not _grad_taken(y, scale, bias):
+        return group_flat_norm_eval(y, scale, bias, gsize, eps, act=act,
+                                    act_alpha=act_alpha)
     alpha = _gfn_alpha(act, act_alpha)
     f = y.shape[-1]
     y2 = _gfn_layout(y).view(-1, f)
@@ -1379,6 +1426,8 @@ def flash_mha(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """Differentiable K3 with the JAX contract (``pallas_kernels.
     flash_mha``): packed ``qkv [B, N, 3C]`` -> context ``[B, N, C]`` in
     qkv's dtype, with an explicit score ``scale``."""
+    if _PLAIN:
+        return flash_mha_plain(qkv, num_heads, scale)
     b, n, c3 = qkv.shape
     qkv2 = _contiguous(qkv, "flash_mha").view(b * n, c3)
     return FlashMHA.apply(qkv2, n, num_heads, float(scale)).view(b, n, c3 // 3)
@@ -1555,6 +1604,9 @@ def attention_train_fused(x: torch.Tensor, qkv_w: torch.Tensor,
     [B, N, C]`` -> ``[B, N, C]`` in x's dtype, gradients to x and the four
     projections; weights in ``Linear`` layout (``qkv_w [3C, C]``, ``proj_w
     [C, C]``) in x's dtype, biases float32."""
+    if _PLAIN:
+        return attention_train_fused_plain(x, qkv_w, qkv_b, proj_w, proj_b,
+                                           num_heads, scale)
     return _attention_train_fused(x, qkv_w, qkv_b, proj_w, proj_b, num_heads,
                                   scale, attention_train_fwd)
 

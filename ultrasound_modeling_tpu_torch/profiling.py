@@ -8,9 +8,10 @@ and ``serve-{f32,bf16}`` (the kernel path's forward at batch 64) or
 ``train-{f32,bf16}[-{composed,flash,pallas,k4}]`` (the whole train step as
 the family's Trainer builds it (its loss and optimizer rule), kernel
 route, augmentation on, at the family's batch: ViT 8, TransUNet 32, Swin
-32, ResNeStUNet 64, MobileUNet 256); a trailing ``-plain`` takes the plain
-train route instead.  The ViT runs every cell, the TransUNet both
-serving cells and its f32 composed and bf16 flash train steps, the Swin both serving cells and its
+32, ResNeStUNet 64, MobileUNet 256); a trailing ``-plain`` runs the step
+under ``ops.kernels.plain_versions()``, every kernel's plain version.
+The ViT runs every cell, the TransUNet both serving cells and its f32
+composed and bf16 flash train steps, the Swin both serving cells and its
 f32 and bf16 train steps (``k4``: it trains on K4 and its backward, drop
 path on), the f32 one also on the plain route, the ResNeStUNet and the
 MobileUNet (no kernel on their paths; dropout on in train) both serving
@@ -111,6 +112,7 @@ def _loaded_artifact(mcfg, model, frame, batch, device):
 def _cell_fn(family: str, cell: str, device):
     """(one repetition of the cell, frames a repetition)."""
     from ultrasound_modeling_tpu_torch.data import synthetic
+    from ultrasound_modeling_tpu_torch.ops import kernels
     from ultrasound_modeling_tpu_torch.train.loop import loss_for, optimizer_for
     from ultrasound_modeling_tpu_torch.train.step import (
         TrainState, make_train_step)
@@ -119,8 +121,6 @@ def _cell_fn(family: str, cell: str, device):
     parts = cell.split("-")
     if parts[0] == "serve":
         model = _model(family, parts[1], "xla", device).eval()
-        if hasattr(model, "set_attn_impl"):
-            model.set_attn_impl("kernel")
         x = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
             (SERVE_BATCH, *frame)).astype(np.float32)).to(device)
         fwd = model
@@ -135,8 +135,6 @@ def _cell_fn(family: str, cell: str, device):
     dtype = parts[1]
     impl = {"composed": "xla"}.get(parts[2], parts[2]) if parts[2:] else "xla"
     model = _model(family, dtype, impl, device).train()
-    if hasattr(model, "set_train_route"):
-        model.set_train_route("plain" if parts[3:] == ["plain"] else "kernel")
     bs = cfg.train.batch_size
     raw = synthetic.make_raw_array(bs, SEED + 2, *frame)
     x = torch.from_numpy(np.ascontiguousarray(raw[:, 0, :, :, 1:-1])).to(device)
@@ -146,7 +144,11 @@ def _cell_fn(family: str, cell: str, device):
                        torch.Generator(device=device).manual_seed(SEED + 1))
     step = make_train_step(model, loss_for(cfg.train),
                            l2_scale=cfg.train.l2_regularization)
-    return (lambda: step(state, x, y, 1e-4)), bs
+
+    def train():
+        with kernels.plain_versions(parts[3:] == ["plain"]):
+            step(state, x, y, 1e-4)
+    return train, bs
 
 
 def _kernels_under(ev):
