@@ -581,6 +581,49 @@ def test_transunet_bf16_b64_eval_runs_k2_for_its_branch_norms(cuda, monkeypatch)
 
 
 @pytest.mark.cuda
+def test_transunet_bf16_eval_folds_its_batch_norms(cuda, monkeypatch):
+    """The full-width TransUNet's bf16 eval forward at b8 (seeded random
+    weights) folds its 26 BatchNorms into the convs before them
+    (``models.common.conv_norm``): within the serving gate of its f32
+    forward (max abs 0.05, argmax agreement 0.99, TF32 off), and within the
+    serving cell's limit (0.0065, the worst frame's RMS) of the same bf16
+    forward with each conv, then its norm."""
+    from ultrasound_modeling_tpu_torch.config import default_config
+    from ultrasound_modeling_tpu_torch.models import common, resnest, transunet
+    from ultrasound_modeling_tpu_torch.models.registry import build_model
+    from ultrasound_modeling_tpu_torch.utils.checkpoint import (
+        from_flax, random_flax_variables)
+    common.full_f32_matmuls()
+    mcfg = default_config("transunet").model
+    model = build_model(mcfg)
+    model.load_state_dict(from_flax(random_flax_variables(model, 0), "transunet"))
+    model = model.eval().to(cuda)
+    h, w = mcfg.img_size
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, h, w, mcfg.in_channels)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        f32 = model(x)
+        model.compute_dtype = BF
+        common.reset_fold_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        folds = dict(common.FOLDS)
+        for mod in (transunet, resnest):
+            monkeypatch.setattr(mod, "conv_norm", lambda c, n, t: n(c(t)))
+        separate = model(x)
+    assert folds == {"conv_norm": 26, "separate": 0}
+    diff = (got - f32).abs().max().item()
+    agree = (got.argmax(-1) == f32.argmax(-1)).float().mean().item()
+    d = (got.double() - separate.double()).reshape(8, -1)
+    worst = d.pow(2).mean(1).sqrt().max().item()
+    print(f"bf16 b8 eval forward, folded: vs f32 max abs {diff:.3e}, argmax "
+          f"agreement {agree:.6f}; vs conv then norm worst frame RMS "
+          f"{worst:.3e}, max abs {d.abs().max().item():.3e}")
+    assert diff <= 0.05 and agree >= 0.99
+    assert worst <= 0.0065
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,seq,c,heads", [(32, 80, 512, 4), (3, 20, 48, 4),
                                            (2, 160, 1280, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, BF])

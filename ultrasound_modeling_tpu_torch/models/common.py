@@ -6,7 +6,8 @@ PyTorch's ``channels_last`` layout, so no copy is made on the way in or out.
 
 Numerics follow the Keras layers the reference uses: LayerNorm eps 1e-3
 (channels only), BatchNorm eps 1e-3 and momentum 0.99 (batch statistics
-in train mode, running statistics in eval), LeakyReLU 0.3 (the ViT stem's
+in train mode, running statistics in eval, where ``conv_norm`` folds it
+into the conv before it), LeakyReLU 0.3 (the ViT stem's
 0.2), exact GELU, ELU and ReLU6 (the ResNeStUNet's and the MobileUNet's),
 and flax's ``nn.Dropout``.  Params stay float32; under a bfloat16 compute dtype the convs and matmuls
 run in bfloat16, while norm statistics and softmaxes are taken in float32.
@@ -123,6 +124,8 @@ class Conv(nn.Module):
     pads symmetrically (``conv_nhwc``); any other SAME conv pads as flax
     does (``flax_same_pads``)."""
 
+    OUT_AXIS = 0   # of the OIHW weight
+
     def __init__(self, cin: int, cout: int, kernel=3, dilation: int = 1,
                  stride=1, padding="SAME", groups: int = 1,
                  use_bias: bool = True):
@@ -140,11 +143,16 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
-        kh, kw = self.weight.shape[-2:]
+        return self.run(x, self.weight, self.bias)
+
+    def run(self, x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This conv's geometry with ``weight`` and ``bias`` in place of its
+        own (``conv_norm``'s folded ones), cast to x's dtype."""
+        kh, kw = weight.shape[-2:]
         if (self.stride == (1, 1) and self.padding == "SAME"
                 and kh == kw and kh % 2):
-            return conv_nhwc(x, self.weight, self.bias, self.dilation,
-                             self.groups)
+            return conv_nhwc(x, weight, bias, self.dilation, self.groups)
         y = x.permute(0, 3, 1, 2)
         if self.padding == "SAME":
             (sh, sw), d = self.stride, self.dilation
@@ -154,7 +162,7 @@ class Conv(nn.Module):
         elif self.padding != "VALID":
             ph, pw = self.padding
             y = F.pad(y, (*pw, *ph))
-        y = F.conv2d(y, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+        y = F.conv2d(y, weight.to(x.dtype), _cast(bias, x.dtype),
                      stride=self.stride, dilation=self.dilation,
                      groups=self.groups)
         return y.permute(0, 2, 3, 1)
@@ -172,6 +180,8 @@ class ConvTranspose(nn.Module):
     s=2 it is ``padding=1`` (flax pads the dilated input by 2 on each
     side), ``2n`` rows at even and odd ``n``."""
 
+    OUT_AXIS = 1   # of the [in, out, kh, kw] weight
+
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 2,
                  use_bias: bool = True):
         super().__init__()
@@ -180,13 +190,16 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
+        return self.run(x, self.weight, self.bias)
+
+    def run(self, x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """As ``Conv.run``: ``weight`` and ``bias`` in place of its own."""
         b, h, w, _ = x.shape
         s = self.stride
-        k = self.weight.shape[-1]
-        pad = (k - s) // 2
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                               _cast(self.bias, x.dtype), stride=s,
-                               padding=pad)
+        pad = (weight.shape[-1] - s) // 2
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                               _cast(bias, x.dtype), stride=s, padding=pad)
         return y[:, :, :h * s, :w * s].permute(0, 2, 3, 1)
 
 
@@ -253,6 +266,46 @@ class Norm(nn.Module):
 
     def forward(self, x):
         return getattr(self, self.inner)(x)
+
+
+# conv -> BatchNorm pairs that ``conv_norm`` ran as one folded conv (eval)
+# and as the conv, then the norm (train)
+FOLDS = {"conv_norm": 0, "separate": 0}
+
+
+def reset_fold_counts() -> None:
+    for k in FOLDS:
+        FOLDS[k] = 0
+
+
+def conv_norm(conv: Conv | ConvTranspose, norm: Norm,
+              x: torch.Tensor) -> torch.Tensor:
+    """``norm(conv(x))`` for a ``Conv`` or ``ConvTranspose`` feeding ``norm``
+    directly.
+
+    An eval ``BatchNorm`` is a fixed per-channel affine map, ``y * a + (beta
+    - mean * a)`` with ``a = gamma * rsqrt(var + eps)``; composed with the
+    conv it is the same conv with weight ``W * a`` (per output channel) and
+    bias ``(b - mean) * a + beta``, so the pair runs as that one conv and
+    the norm's full-size passes over the conv's output are not made.  The
+    fold is computed from the parameters and running statistics on every
+    call (a few small ops), so weights substituted by ``functional_call``,
+    restored or stepped are never seen stale.  A train-mode BatchNorm
+    (batch statistics, the running-statistic update) and a LayerNorm run
+    after the conv as they are."""
+    if norm.inner != "BatchNorm_0":
+        return norm(conv(x))
+    bn = norm.BatchNorm_0
+    if bn.training:
+        FOLDS["separate"] += 1
+        return norm(conv(x))
+    FOLDS["conv_norm"] += 1
+    a = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    shape = [1] * conv.weight.dim()
+    shape[conv.OUT_AXIS] = -1
+    shift = -bn.running_mean if conv.bias is None else conv.bias - bn.running_mean
+    return conv.run(x, conv.weight * a.reshape(shape),
+                    torch.addcmul(bn.bias, shift, a))
 
 
 class Dropout(nn.Module):

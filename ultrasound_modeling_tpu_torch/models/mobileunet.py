@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultrasound_modeling_tpu_torch.models.common import (
-    Conv, ConvTranspose, Dropout, Norm, relu6, softmax_f32)
+    Conv, ConvTranspose, Dropout, Norm, conv_norm, relu6, softmax_f32)
 
 # (filters, stride) per inverted-residual block
 BLOCK_TABLE = (
@@ -69,8 +69,8 @@ class InvertedResidual(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         inputs, expand_out = x, None
         if self.expand is not None:
-            x = expand_out = relu6(self.expand_bn(self.expand(x)))
-        x = relu6(self.depthwise_bn(self.depthwise(x)))
+            x = expand_out = relu6(conv_norm(self.expand, self.expand_bn, x))
+        x = relu6(conv_norm(self.depthwise, self.depthwise_bn, x))
         x = self.project(x)
         return (inputs + x if self.residual else x), expand_out
 
@@ -110,7 +110,7 @@ class _Upsample(nn.Module):
         self.Dropout_0 = Dropout(0.5) if apply_dropout else None
 
     def forward(self, x):
-        x = self.bn(self.t_conv(x))
+        x = conv_norm(self.t_conv, self.bn, x)
         if self.Dropout_0 is not None:
             x = self.Dropout_0(x)
         return F.relu(x)

@@ -52,7 +52,8 @@ import torch.nn.functional as F
 
 from ultrasound_modeling_tpu_torch.models.common import (
     KERAS_BN_EPS, KERAS_BN_MOMENTUM, KERAS_LN_EPS, LEAKY_ALPHA, Conv,
-    ConvTranspose, Dropout, Norm, avg_pool2, conv_nhwc, elu, leaky, softmax_f32)
+    ConvTranspose, Dropout, Norm, avg_pool2, conv_nhwc, conv_norm, elu, leaky,
+    softmax_f32)
 from ultrasound_modeling_tpu_torch.ops import kernels
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -202,7 +203,7 @@ class ResidualS(nn.Module):
         concats = self.concat_conv(self._split_attention(x))
         if self.shortcut_conv is None:
             return x + concats
-        sc = self.act(self.shortcut_norm(self.shortcut_conv(x)))
+        sc = self.act(conv_norm(self.shortcut_conv, self.shortcut_norm, x))
         return sc + concats
 
 
@@ -226,8 +227,8 @@ class ResNeStEncoder(nn.Module):
 
     def forward(self, x):
         x = leaky(self.initial_conv(x))
-        x = leaky(self.convtmp_1bn(self.convtmp_1(x)))
-        x = leaky(self.convtmp_2bn(self.convtmp_2(x)))
+        x = leaky(conv_norm(self.convtmp_1, self.convtmp_1bn, x))
+        x = leaky(conv_norm(self.convtmp_2, self.convtmp_2bn, x))
         x = avg_pool2(x)
         x1 = self.stage1(x)
         x2 = self.stage2(avg_pool2(x1))
@@ -247,7 +248,7 @@ class _Upsample(nn.Module):
         self.Dropout_0 = Dropout(0.5) if apply_dropout else None
 
     def forward(self, x):
-        x = self.bn(self.t_conv(x))
+        x = conv_norm(self.t_conv, self.bn, x)
         if self.Dropout_0 is not None:
             x = self.Dropout_0(x)
         return F.relu(x)
@@ -292,7 +293,7 @@ class ResNeStUNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = elu(self.conv1(x.to(self.compute_dtype)))
         x = elu(self.conv2_1_1(x))    # no BatchNorm on this conv
-        x = elu(self.conv2_1_2bn(self.conv2_1_2(x)))
+        x = elu(conv_norm(self.conv2_1_2, self.conv2_1_2bn, x))
         pools = [avg_pool2(x)]
         for name in ("conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv4_1"):
             pools.append(avg_pool2(getattr(self, name)(pools[-1])))

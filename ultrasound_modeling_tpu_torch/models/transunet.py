@@ -21,7 +21,8 @@ backward kernel, the output projection) or ``'pallas'`` (the whole chain
 as K5 ``ops.kernels.attention_train_fused``, whose forward saves qkv and
 the probabilities for its backward).  Under ``ops.kernels.plain_versions()``
 each kernel named here runs its plain PyTorch version.  The BatchNorms
-train with batch statistics.
+train with batch statistics; in eval each is folded into the conv before
+it (``models.common.conv_norm``).
 
 Left out: ``KSACDecoderBlock``, pipeline parallelism, remat, dropout.
 """
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ultrasound_modeling_tpu_torch.models.common import (
-    Conv, ConvTranspose, LayerNorm, Norm, gelu, leaky)
+    Conv, ConvTranspose, LayerNorm, Norm, conv_norm, gelu, leaky)
 from ultrasound_modeling_tpu_torch.models.resnest import ResNeStEncoder
 from ultrasound_modeling_tpu_torch.ops import kernels
 from ultrasound_modeling_tpu_torch.ops.attention import mha
@@ -200,7 +201,8 @@ class DecoderBlock(nn.Module):
             x = torch.cat([x, skip], dim=-1)
         for stage in (1, 2):
             x = leaky(torch.cat([
-                getattr(self, f"bn{stage}_{b}")(getattr(self, f"conv{stage}_{b}")(x))
+                conv_norm(getattr(self, f"conv{stage}_{b}"),
+                          getattr(self, f"bn{stage}_{b}"), x)
                 for b in range(len(self.BRANCHES))], dim=-1))
         return x
 
